@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of STEREO_GIF on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (STEREO_GIF and STEREO_SGBM) on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases (each prints its lines; any failed check raises and exits non-zero):
 
   1. the card's name and power limit, as nvidia-smi prints them;
-  2. build the three CUDA kernels from csrc/ (one nvcc per source, in
+  2. build the seven CUDA kernels from csrc/ (one nvcc per source, in
      parallel) and print the build seconds and ptxas resource lines;
   3. parity on the card, each kernel against its plain PyTorch version on
-     the same CUDA tensors, at the Teddy shapes (D=64, 375x450, maps
-     93x112) and the 2K shapes (D=256, 1242x2208, maps 310x552);
-  4. the main path: Teddy and Cones end to end through the kernels, %BP
-     (nonocc) within 0.3 of the reference binary's 17.229 / 9.072, then a
-     2K frame (max_dis=256) on a seeded textured pair whose right view is
-     the left one shifted by a known disparity field; every kernel's launch
-     count is set to 0 just before and read just after;
-  5. times with CUDA events (3 warm-up, 20 timed launches) of each kernel
-     and its plain version at both shapes, end-to-end frame times (host
-     clock, synchronised), and a torch.profiler pass over 5 frames per
-     shape for the device time by kernel and the device's idle share;
+     the same CUDA tensors, at the Teddy shapes and the 2K shapes: GIF
+     (K1-K3) at D=64, 375x450, maps 93x112 and D=256, 1242x2208, maps
+     310x552; SGBM (K6-K9, bitwise) at Teddy D=64 and the 2K pair rounded
+     to uint8, D=256;
+  4. the main paths, each with every launch count set to 0 just before it
+     and read just after. GIF: Teddy and Cones end to end, %BP(nonocc)
+     within 0.3 of the reference binary's 17.229 / 9.072, then a 2K frame
+     (max_dis=256) on a seeded textured pair whose right view is the left
+     one shifted by a known disparity field. SGBM (SGBMConfig()): Teddy and
+     Cones, whose int16 outputs must hash to the JAX package's (sha256) and
+     meet the cv2-golden bounds of tests/test_sgbm_cv2_golden.py, then the
+     2K pair with num_disparities=256, whose interior medians must be the
+     field's 96 and 48 within 1;
+  5. times with CUDA events (3 warm-up, 20 timed launches; 1 and 2 for
+     the slow SGBM plain versions at 2K) of each kernel and its plain
+     version at both shapes, end-to-end frame times (host clock,
+     synchronised), a torch.profiler pass over 5 frames per shape and
+     path for the device time by kernel and the device's idle share, the
+     speckle sweeps and host syncs per SGBM frame, and peak device memory;
   6. one JSON line listing the kernels, then the final status JSON line.
 
 Needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and the package
@@ -29,6 +37,7 @@ to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -42,29 +51,48 @@ import primestereomatch_torch as psm
 from primestereomatch_torch import kernels as K
 from primestereomatch_torch.kernels import _build
 from primestereomatch_torch.models.gif_pipeline import _to_u8, sampled_cost_volumes
+from primestereomatch_torch.ops import sgbm as sgbm_ops
 from primestereomatch_torch.ops.guided_filter import guide_stats
 from primestereomatch_torch.utils import bad_pixel_metrics, load_dataset
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN_NONOCC = {"Teddy": 17.229, "Cones": 9.072}   # reference binary, +-0.3
+# sha256 of the JAX package's int16 STEREO_SGBM output with SGBMConfig()
+# (tests/test_torch_sgbm.py recomputes them from JAX on the CPU)
+SGBM_SHA256 = {
+    "Teddy": "a88bc838da2045ca8893b45a05d6466288a2843a974dfa835605055c23dcba16",
+    "Cones": "ee9e4a8e15462ebc92336ade40a98bf137333dd5b242df8366adbb5016f78a53",
+}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+# H100 SXM int32 ALU peak: 64 INT32 lanes per SM (Hopper white paper) x 132
+# SMs x the 1.98 GHz boost clock
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 ITERS, WARMUP = 20, 3
 H2K, W2K = 1242, 2208          # 2K frame of a ZED-class camera
 TPU_KERNEL = {
     "lowmaps": "primestereomatch_tpu/kernels/lowmaps_pallas.py:137",
     "wta": "primestereomatch_tpu/kernels/wta_pallas.py:298",
     "wmf": "primestereomatch_tpu/kernels/wmf_pallas.py:69",
+    "bt_cost": "primestereomatch_tpu/kernels/sgbm_pallas.py:383",
+    "sgbm_scan": "primestereomatch_tpu/kernels/sgbm_pallas.py:83",
+    "select": "primestereomatch_tpu/kernels/select_pallas.py:280",
+    "speckle": "primestereomatch_tpu/kernels/speckle_pallas.py:51",
 }
+GIF_KERNELS = ("lowmaps", "wta", "wmf")
+SGBM_KERNELS = ("bt_cost", "sgbm_scan", "select", "speckle")
+# cv2-golden bounds (tests/test_sgbm_cv2_golden.py:58-104): within-1d on
+# jointly valid x >= 64 at least, interior validity mismatch at most
+CV2_BOUNDS = {"Teddy": (0.985, 0.045), "Cones": (0.990, 0.040)}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = ITERS) -> float:
+def cuda_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     """Mean device ms per call over `iters` calls after a warm-up."""
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -77,9 +105,9 @@ def cuda_ms(fn, iters: int = ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -113,6 +141,34 @@ def bound_wmf(disp: torch.Tensor, out: torch.Tensor, radius: int, n_bins: int):
     # n_bins adds for the total and 2 ops per bin up to each pixel's median
     scan = B * H * W * n_bins + 2 * int(out.to(torch.int64).add(1).sum())
     return bound(5 * B * H * W, 11 * pairs + scan)
+
+
+def bound_bt_cost(lf: torch.Tensor, cost: torch.Tensor):
+    H, W, C = lf.shape
+    n = cost.numel()
+    # read both feature images once, write the cost once; per (y, x, d):
+    # 10 integer ops per channel for the BT cost, 4 for the running sums
+    return bound(2 * 4 * lf.numel() + cost.element_size() * n, n * (10 * C + 4),
+                 INT32_OPS_PER_S)
+
+
+def bound_scan(cost: torch.Tensor, n_dirs: int):
+    n = cost.numel()
+    # read C once, write the int32 S once; ~8 ops per (direction, pixel, d)
+    return bound(n * (cost.element_size() + 4), 8 * n_dirs * n, INT32_OPS_PER_S)
+
+
+def bound_select(S: torch.Tensor):
+    H, W, _ = S.shape
+    # read S once, write int16 disparities; per value 2 ops for the argmin
+    # and 3 for the far-set min
+    return bound(4 * S.numel() + 2 * H * W, 5 * S.numel(), INT32_OPS_PER_S)
+
+
+def bound_sweep(m: torch.Tensor):
+    # one sweep = rows then columns: per pass 4 B label + 1 B link in, 4 B
+    # out, and 7 ops per pixel (two segmented steps and the final min)
+    return bound(2 * 9 * m.numel(), 2 * 7 * m.numel(), INT32_OPS_PER_S)
 
 
 def synthetic_2k(seed: int = 0):
@@ -207,37 +263,107 @@ def parity(name: str, cfg, left, right, dev, report):
     report[name] = row
 
 
-def frame_ms(l_t, r_t, cfg, dev, iters: int = ITERS) -> float:
-    """Host-clock ms per end-to-end frame (device tensors in, synchronised)."""
+def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
+    """K6-K9 against their plain versions on the same CUDA tensors, bitwise,
+    and the times of both (phases 3 and 5 for one SGBM shape)."""
+    l_t = torch.as_tensor(left_u8, device=dev)
+    r_t = torch.as_tensor(right_u8, device=dev)
+    lf = sgbm_ops.sobel_xclip(l_t, cfg.pre_filter_cap)
+    rf = sgbm_ops.sobel_xclip(r_t, cfg.pre_filter_cap)
+    D, k, nd = cfg.num_disparities, cfg.block_size, cfg.num_directions
+    cost_bound = k * k * lf.shape[2] * 2 * cfg.pre_filter_cap
+    sel = (cfg.uniqueness_ratio, cfg.disp12_max_diff, cfg.min_disparity)
+    row = {}
+
+    def check(kname, pairs, what):
+        n = n_diff = err = 0
+        for got, want in pairs:
+            if got.dtype != want.dtype or got.shape != want.shape:
+                raise AssertionError(f"{kname} at {name}: {got.dtype} {tuple(got.shape)} vs "
+                                     f"{want.dtype} {tuple(want.shape)}")
+            diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+            n, n_diff = n + diff.numel(), n_diff + int((diff > 0).sum())
+            err = max(err, int(diff.max()))
+        row[kname] = {"max_abs_err": err, "n_differ": n_diff, "n": n}
+        log(f"parity {name} {kname} {what}: max|diff|={err} differing={n_diff}/{n} (bitwise)")
+        if n_diff:
+            raise AssertionError(f"{kname} disagrees with its plain version at {name}")
+
+    cost = K.bt_cost(lf, rf, D, k, cost_bound)
+    check("bt_cost", [(cost, K.bt_cost_plain(lf, rf, D, k, cost_bound))],
+          f"(H,W,C,D)={tuple(lf.shape) + (D,)} k={k} {cost.dtype}")
+    S = K.sgbm_aggregate(cost, cfg.p1, cfg.p2, nd)
+    check("sgbm_scan", [(S, K.sgbm_aggregate_plain(cost, cfg.p1, cfg.p2, nd))],
+          f"(H,W,D)={tuple(S.shape)} {nd} directions")
+    torch.cuda.empty_cache()
+    disp = K.select_disparity(S, *sel)
+    check("select", [(disp, K.select_disparity_plain(S, *sel))],
+          f"(H,W,D)={tuple(S.shape)} uniq/d12/minD={sel}")
+    _, labels, (conn_up, _, conn_lf, _) = sgbm_ops.speckle_graph(
+        disp, 16 * cfg.speckle_range, (cfg.min_disparity - 1) * 16)
+    c_lf, c_up = conn_lf.to(torch.uint8), conn_up.to(torch.uint8)
+    check("speckle", [(K.segmin_sweep(labels, c, ax), K.segmin_sweep_plain(labels, c, ax))
+                      for c, ax in ((c_lf, 1), (c_up, 0))],
+          f"(H,W)={tuple(labels.shape)} rows and columns")
+
+    slow = D > 64     # the plain versions' Python loops run long at 2K
+    timing = {
+        "bt_cost": (lambda: K.bt_cost(lf, rf, D, k, cost_bound),
+                    lambda: K.bt_cost_plain(lf, rf, D, k, cost_bound),
+                    bound_bt_cost(lf, cost)),
+        "sgbm_scan": (lambda: K.sgbm_aggregate(cost, cfg.p1, cfg.p2, nd),
+                      lambda: K.sgbm_aggregate_plain(cost, cfg.p1, cfg.p2, nd),
+                      bound_scan(cost, nd)),
+        "select": (lambda: K.select_disparity(S, *sel),
+                   lambda: K.select_disparity_plain(S, *sel), bound_select(S)),
+        # one sweep: the row launch, then the column launch
+        "speckle": (lambda: (K.segmin_sweep(labels, c_lf, 1), K.segmin_sweep(labels, c_up, 0)),
+                    lambda: (K.segmin_sweep_plain(labels, c_lf, 1),
+                             K.segmin_sweep_plain(labels, c_up, 0)),
+                    bound_sweep(labels)),
+    }
+    for kname, (fk, fp, (b_ms, b_by)) in timing.items():
+        plain_iters = (2, 1) if slow and kname != "speckle" else (ITERS, WARMUP)
+        row[kname].update(ms=cuda_ms(fk), plain_ms=cuda_ms(fp, *plain_iters), bound_ms=b_ms,
+                          bound_by=b_by)
+        torch.cuda.empty_cache()
+        r = row[kname]
+        log(f"time {name} {kname}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.5f} ms ({b_by}), {b_ms / r['ms']:.1%} of bound")
+    report[name] = row
+
+
+def frame_ms(run, iters: int = ITERS) -> float:
+    """Host-clock ms per end-to-end frame of `run()` (device tensors in,
+    synchronised)."""
     for _ in range(WARMUP):
-        psm.stereo_gif_forward(l_t, r_t, cfg, device=dev)
+        run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        psm.stereo_gif_forward(l_t, r_t, cfg, device=dev)
+        run()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_frames(l_t, r_t, cfg, dev, frames: int = 5) -> dict:
+def profile_frames(run, tags: dict, frames: int = 5) -> dict:
     """Device time per frame by kernel, from torch.profiler over `frames`
-    end-to-end frames. Device rows are those with device time and no host
-    time (kernels and copies); the idle share is 1 - device time / wall."""
+    end-to-end frames of `run()`. Device rows are those with device time and
+    no host time (kernels and copies); `tags` maps a substring of a kernel's
+    name to its report key; the idle share is 1 - device time / wall."""
     from torch.profiler import ProfilerActivity, profile
 
-    psm.stereo_gif_forward(l_t, r_t, cfg, device=dev)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
-            psm.stereo_gif_forward(l_t, r_t, cfg, device=dev)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     rows = [e for e in prof.key_averages()
             if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
-    per = {"lowmaps": 0.0, "wta": 0.0, "wmf": 0.0, "other": 0.0}
-    tags = {"lowmaps_kernel": "lowmaps", "upsample_wta_kernel": "wta",
-            "joint_wmf_kernel": "wmf"}
+    per = {**{t: 0.0 for t in tags.values()}, "other": 0.0}
     launches = 0
     for e in rows:
         tag = next((t for key, t in tags.items() if key in e.key), "other")
@@ -246,6 +372,39 @@ def profile_frames(l_t, r_t, cfg, dev, frames: int = 5) -> dict:
     busy = sum(per.values())
     return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1 - busy / wall_ms,
             "device_ms_by_kernel": per, "device_ops_per_frame": launches / frames}
+
+
+def end_to_end(label: str, run, tags: dict, note: str) -> dict:
+    ms = frame_ms(run)
+    out = {"ms_per_frame": ms, "fps": 1e3 / ms, "profile": profile_frames(run, tags)}
+    log(f"end to end {label}: {ms:.3f} ms/frame, {1e3 / ms:.2f} fps ({note})")
+    prof = out["profile"]
+    by = ", ".join(f"{k} {v:.3f}" for k, v in prof["device_ms_by_kernel"].items())
+    log(f"profile {label}: wall {prof['wall_ms']:.3f} ms/frame under the profiler, device "
+        f"{prof['device_ms']:.3f} ms ({by}), idle share {prof['idle_share']:.1%}, "
+        f"{prof['device_ops_per_frame']:.0f} device ops/frame")
+    return out
+
+
+def check_medians_2k(ld: np.ndarray, rd: np.ndarray | None, rect) -> dict:
+    """Interior medians of the 2K frame's disparities against the seeded
+    field (96 in the rectangle, 48 elsewhere), within 1. `ld`/`rd` are
+    integer disparities; NaN marks invalid pixels."""
+    y0, y1, x0, x1 = rect
+    m = 40   # interior margin away from region edges and occlusions
+    checks = {
+        "left fg": (ld[y0 + m:y1 - m, x0 + 96 + m:x1 + 96 - m], 96),
+        "left bg": (ld[y0 + m:y1 - m, 200:x0 + 48 - m], 48),
+    }
+    if rd is not None:
+        checks["right fg"] = (rd[y0 + m:y1 - m, x0 + m:x1 - m], 96)
+        checks["right bg"] = (rd[y1 + m:H2K - m, 200:W2K - 400], 48)
+    med = {}
+    for key, (region, want) in checks.items():
+        med[key] = float(np.nanmedian(region))
+        if not abs(med[key] - want) <= 1:
+            raise AssertionError(f"2K {key} median {med[key]} != {want}")
+    return med
 
 
 def main() -> int:
@@ -272,13 +431,22 @@ def main() -> int:
 
     cfg = psm.GIFConfig()
     cfg2k = psm.GIFConfig(max_dis=256)
+    scfg = psm.SGBMConfig()
+    scfg2k = psm.SGBMConfig(num_disparities=256)
     teddy = load_dataset("Teddy")
     left2k, right2k, rect = synthetic_2k(0)
+    left2k_u8, right2k_u8 = (np.clip(np.rint(a * 255), 0, 255).astype(np.uint8)
+                             for a in (left2k, right2k))
     report: dict = {}
     parity("teddy", cfg, teddy.left_f32, teddy.right_f32, dev, report)
     parity("2k", cfg2k, left2k, right2k, dev, report)
+    torch.cuda.empty_cache()
+    sgbm_report: dict = {}
+    sgbm_parity("teddy", scfg, teddy.left_bgr, teddy.right_bgr, dev, sgbm_report)
+    sgbm_parity("2k", scfg2k, left2k_u8, right2k_u8, dev, sgbm_report)
+    torch.cuda.empty_cache()
 
-    # ---- main path: counts at 0 just before, read just after --------------
+    # ---- GIF main path: counts at 0 just before, read just after ---------
     samples = {n: (teddy if n == "Teddy" else load_dataset(n)) for n in GOLDEN_NONOCC}
     frames = {n: (torch.as_tensor(s.left_f32, device=dev),
                   torch.as_tensor(s.right_f32, device=dev)) for n, s in samples.items()}
@@ -289,12 +457,12 @@ def main() -> int:
     for n, (l_t, r_t) in frames.items():
         before = dict(_build.LAUNCHES)
         outs[n] = psm.stereo_gif_forward(l_t, r_t, cfg2k if n == "2k" else cfg, device=dev)
-        per_frame[n] = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        per_frame[n] = {k: _build.LAUNCHES[k] - before[k] for k in GIF_KERNELS}
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    log(f"main path launches: {launches}; per frame: {per_frame}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    log(f"GIF main path launches: {launches}; per frame: {per_frame}")
+    if min(launches[k] for k in GIF_KERNELS) < 1:
+        raise AssertionError(f"a kernel of the GIF path never launched: {launches}")
 
     bp = {}
     for n, s in samples.items():
@@ -308,43 +476,112 @@ def main() -> int:
             raise AssertionError(f"{n} disparities out of range")
 
     ld, rd = (t.cpu().numpy() for t in outs["2k"])
-    y0, y1, x0, x1 = rect
-    m = 40   # interior margin away from region edges and occlusions
-    checks = {
-        "left fg": (ld[y0 + m:y1 - m, x0 + 96 + m:x1 + 96 - m], 96),
-        "left bg": (ld[y0 + m:y1 - m, 200:x0 + 48 - m], 48),
-        "right fg": (rd[y0 + m:y1 - m, x0 + m:x1 - m], 96),
-        "right bg": (rd[y1 + m:H2K - m, 200:W2K - 400], 48),
-    }
     if ld.shape != (H2K, W2K) or ld.dtype != np.uint8 or min(ld.min(), rd.min()) < 1:
         raise AssertionError(f"2K output {ld.shape} {ld.dtype} min {ld.min()}")
-    med2k = {}
-    for key, (region, want) in checks.items():
-        med2k[key] = float(np.median(region))
-        if abs(med2k[key] - want) > 1:
-            raise AssertionError(f"2K {key} median {med2k[key]} != {want}")
+    med2k = check_medians_2k(ld.astype(np.float64), rd.astype(np.float64), rect)
     log(f"2k (1242x2208, max_dis=256): interior medians {med2k} match the field")
+    del outs
+    torch.cuda.empty_cache()
+
+    # ---- SGBM main path: counts at 0 just before, read just after --------
+    sframes = {n: (torch.as_tensor(s.left_bgr, device=dev), torch.as_tensor(s.right_bgr,
+                                                                            device=dev))
+               for n, s in samples.items()}
+    sframes["2k"] = (torch.as_tensor(left2k_u8, device=dev),
+                     torch.as_tensor(right2k_u8, device=dev))
+    torch.cuda.synchronize()
+    K.reset_launches()
+    souts, sper_frame = {}, {}
+    for n, (l_t, r_t) in sframes.items():
+        before = dict(_build.LAUNCHES)
+        souts[n] = psm.stereo_sgbm_forward(l_t, r_t, scfg2k if n == "2k" else scfg, device=dev)
+        sper_frame[n] = {k: _build.LAUNCHES[k] - before[k] for k in SGBM_KERNELS}
+        # a sweep is two K9 launches; the filter syncs once per 2 sweeps
+        # (its default steps_per_check), to test for convergence
+        sper_frame[n]["speckle_sweeps"] = sper_frame[n]["speckle"] // 2
+        sper_frame[n]["host_syncs"] = sper_frame[n]["speckle"] // 4
+    torch.cuda.synchronize()
+    slaunches = dict(_build.LAUNCHES)
+    log(f"SGBM main path launches: {slaunches}; per frame: {sper_frame}")
+    if min(slaunches[k] for k in SGBM_KERNELS) < 1:
+        raise AssertionError(f"a kernel of the SGBM path never launched: {slaunches}")
+
+    goldens = np.load(ROOT / "tests" / "golden" / "sgbm_cv2.npz")
+    nd = scfg.num_disparities
+    sgbm_q: dict = {}
+    for n, s in samples.items():
+        ours = souts[n].cpu().numpy()
+        digest = hashlib.sha256(ours.tobytes()).hexdigest()
+        if ours.dtype != np.int16 or ours.shape != s.gt.shape or digest != SGBM_SHA256[n]:
+            raise AssertionError(f"SGBM {n}: {ours.dtype} {ours.shape} sha256 {digest} is "
+                                 f"not the JAX output's {SGBM_SHA256[n]}")
+        ref = goldens[f"{n}_hh"]
+        io, ir = ours[:, nd:], ref[:, nd:]
+        both = (io >= 0) & (ir >= 0)
+        within_1d = float((np.abs(io.astype(np.int32) - ir)[both] <= 16).mean())
+        validity_mm = float(((io >= 0) != (ir >= 0)).mean())
+        band_mm = float(((ours[:, :nd] >= 0) != (ref[:, :nd] >= 0)).mean())
+
+        def bp_of(d16):
+            u8 = np.clip(np.maximum(d16.astype(np.int32), 0) // 16, 0, nd - 1).astype(np.uint8)
+            return bad_pixel_metrics(u8, s.gt, s.scale_factor, nd,
+                                     mask=s.mask_nonocc).percent_bad_pixels
+
+        bp_ours, bp_cv2 = bp_of(ours), bp_of(ref)
+        sgbm_q[n] = {"sha256": digest, "within_1d": within_1d, "validity_mismatch": validity_mm,
+                     "band_mismatch": band_mm, "bp_nonocc": bp_ours, "bp_nonocc_cv2": bp_cv2}
+        w1_min, vm_max = CV2_BOUNDS[n]
+        log(f"SGBM {n}: sha256 equals the JAX output's; vs cv2: within-1d {within_1d:.4f} "
+            f"(>= {w1_min}), interior validity mismatch {validity_mm:.4f} (<= {vm_max}), "
+            f"band mismatch {band_mm} (0); %BP(nonocc) {bp_ours:.3f} vs cv2 {bp_cv2:.3f} "
+            f"(within 1.0)")
+        if (both.mean() <= 0.5 or within_1d < w1_min or validity_mm > vm_max or band_mm != 0
+                or abs(bp_ours - bp_cv2) > 1.0):
+            raise AssertionError(f"SGBM {n} outside the cv2-golden bounds: {sgbm_q[n]}")
+
+    d16 = souts["2k"].cpu().numpy()
+    if d16.shape != (H2K, W2K) or d16.dtype != np.int16:
+        raise AssertionError(f"SGBM 2K output {d16.shape} {d16.dtype}")
+    disp = np.where(d16 >= 0, d16 / 16.0, np.nan)
+    smed2k = check_medians_2k(disp, None, rect)
+    log(f"SGBM 2k (1242x2208, D=256): interior medians of valid disparities {smed2k} match "
+        f"the field; valid share {float((d16 >= 0).mean()):.3f}")
+    del souts
+    torch.cuda.empty_cache()
 
     e2e = {}
-    for n, c in (("teddy", cfg), ("2k", cfg2k)):
-        l_t, r_t = frames["Teddy" if n == "teddy" else "2k"]
-        ms = frame_ms(l_t, r_t, c, dev)
-        e2e[n] = {"ms_per_frame": ms, "fps": 1e3 / ms, "profile": profile_frames(l_t, r_t, c, dev)}
-        log(f"end to end {n}: {ms:.3f} ms/frame, {1e3 / ms:.2f} fps (both views + JointWMF)")
-        prof = e2e[n]["profile"]
-        by = ", ".join(f"{k} {v:.3f}" for k, v in prof["device_ms_by_kernel"].items())
-        log(f"profile {n}: wall {prof['wall_ms']:.3f} ms/frame under the profiler, device "
-            f"{prof['device_ms']:.3f} ms ({by}), idle share {prof['idle_share']:.1%}, "
-            f"{prof['device_ops_per_frame']:.0f} device ops/frame")
-    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    gif_tags = {"lowmaps_kernel": "lowmaps", "upsample_wta_kernel": "wta",
+                "joint_wmf_kernel": "wmf"}
+    sgbm_tags = {"bt_row_kernel": "bt_cost", "bt_col_kernel": "bt_cost",
+                 "sgm_scan_kernel": "sgbm_scan", "select_kernel": "select",
+                 "segmin_": "speckle"}
+    for n, c, sc in (("teddy", cfg, scfg), ("2k", cfg2k, scfg2k)):
+        key = "Teddy" if n == "teddy" else "2k"
+        l_t, r_t = frames[key]
+        e2e[n] = end_to_end(n, lambda: psm.stereo_gif_forward(l_t, r_t, c, device=dev),
+                            gif_tags, "both views + JointWMF")
+        l_u, r_u = sframes[key]
+        e2e[f"sgbm_{n}"] = end_to_end(
+            f"SGBM {n}", lambda: psm.stereo_sgbm_forward(l_u, r_u, sc, device=dev),
+            sgbm_tags, f"{sc.mode}, D={sc.num_disparities}, speckle filter")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    psm.stereo_sgbm_forward(*sframes["2k"], scfg2k, device=dev)
+    torch.cuda.synchronize()
+    peak_sgbm2k = torch.cuda.max_memory_allocated() / 2**30
+    log(f"peak device memory: {peak:.2f} GiB over the run, {peak_sgbm2k:.2f} GiB for one "
+        f"SGBM 2K frame")
 
     rows = []
-    for kname, src in (("lowmaps", "lowmaps.cu"), ("wta", "wta.cu"), ("wmf", "wmf.cu")):
-        t, k2 = report["teddy"][kname], report["2k"][kname]
+    for kname in GIF_KERNELS + SGBM_KERNELS:
+        rep = report if kname in GIF_KERNELS else sgbm_report
+        n_launch = launches[kname] if kname in GIF_KERNELS else slaunches[kname]
+        t, k2 = rep["teddy"][kname], rep["2k"][kname]
         rows.append({
             "name": kname, "route": "cuda",
-            "source": f"primestereomatch_torch/csrc/{src}",
-            "replaces": TPU_KERNEL[kname], "launches": launches[kname],
+            "source": f"primestereomatch_torch/csrc/{kname}.cu",
+            "replaces": TPU_KERNEL[kname], "launches": n_launch,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "at": "teddy 375x450 D=64",
@@ -356,8 +593,10 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
-        "card": smi, "kernels": rows, "parity": report, "bp_nonocc": bp,
-        "per_frame_launches": per_frame, "e2e": e2e, "medians_2k": med2k,
+        "card": smi, "kernels": rows, "parity": report, "sgbm_parity": sgbm_report,
+        "bp_nonocc": bp, "per_frame_launches": per_frame, "e2e": e2e, "medians_2k": med2k,
+        "sgbm_quality": sgbm_q, "sgbm_per_frame": sper_frame, "sgbm_medians_2k": smed2k,
+        "peak_gib": peak, "peak_gib_sgbm_2k": peak_sgbm2k,
         "build_logs": _build.BUILD_LOGS, "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

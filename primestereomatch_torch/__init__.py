@@ -1,5 +1,5 @@
-"""primestereomatch_torch: the STEREO_GIF stereo engine on PyTorch and
-hand-written CUDA kernels for an NVIDIA H100 (Hopper, sm_90a).
+"""primestereomatch_torch: the stereo engine (STEREO_GIF and STEREO_SGBM) on
+PyTorch and hand-written CUDA kernels for an NVIDIA H100 (Hopper, sm_90a).
 
 A port of primestereomatch_tpu, kept beside it; it imports nothing of that
 package. Entry points run on the CUDA card unless the caller passes
@@ -8,8 +8,20 @@ device="cpu", which runs each kernel's plain PyTorch version.
 
 import torch
 
-from primestereomatch_torch.config import EvalConfig, GIFConfig, from_jax_config  # noqa: F401
-from primestereomatch_torch.models import StereoGIF, stereo_gif_forward  # noqa: F401
+from primestereomatch_torch.config import (  # noqa: F401
+    EvalConfig,
+    GIFConfig,
+    SGBMConfig,
+    from_jax_config,
+    from_jax_sgbm_config,
+)
+from primestereomatch_torch.models import (  # noqa: F401
+    StereoGIF,
+    StereoSGBM,
+    sgbm_display_u8,
+    stereo_gif_forward,
+    stereo_sgbm_forward,
+)
 
 __version__ = "0.1.0"
 

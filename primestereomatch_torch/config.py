@@ -1,14 +1,16 @@
 """Static pipeline configuration (own copy of primestereomatch_tpu/config.py).
 
-The engine has no learned weights: a `GIFConfig` is its whole state.
-`from_jax_config` carries a JAX-package config across as a plain dict
-(`dataclasses.asdict(jax_cfg)`), so this package never imports the JAX one.
+The engine has no learned weights: a `GIFConfig` or `SGBMConfig` is its
+whole state. `from_jax_config` and `from_jax_sgbm_config` carry a
+JAX-package config across as a plain dict (`dataclasses.asdict(jax_cfg)`),
+so this package never imports the JAX one.
 
-Unlike the JAX config, unknown values of the implementation selectors are
-rejected here instead of silently running a default path. The selectors
-name TPU implementations that all compute the same function up to
-last-ulp argmin ties; the port has one implementation of that function,
-so the accepted values do not change what it runs.
+The configs hold only the fields the port reads. The JAX configs also
+carry implementation selectors that choose between TPU implementations of
+one function (Pallas kernel or XLA); the port has one implementation, so
+it has no such fields. The two converters still check each selector
+against the values the JAX package allows (an unknown value raises), then
+drop it.
 """
 
 from __future__ import annotations
@@ -16,11 +18,6 @@ from __future__ import annotations
 import dataclasses
 
 _CHOICES = {
-    "tail_fusion": ("maps", "full"),
-    "cvc_impl": ("auto", "xla", "fused"),
-    "wta_impl": ("auto", "xla", "pallas"),
-    "wmf_impl": ("auto", "jnp", "pallas"),
-    "upsample_impl": ("auto", "lerp", "mxu"),
     "cvc_dtype": ("f32", "u8"),
     "wmf_mode": ("exact", "table"),
 }
@@ -31,6 +28,23 @@ _NOT_PORTED = {
     "wmf_mode": "table",
     "pp_toolchain": True,
 }
+
+# the JAX configs' TPU implementation selectors and their allowed values;
+# `from_jax_*` validate and drop them
+_JAX_GIF_SELECTORS = {
+    "tail_fusion": ("maps", "full"),
+    "cvc_impl": ("auto", "xla", "fused"),
+    "wta_impl": ("auto", "xla", "pallas"),
+    "wmf_impl": ("auto", "jnp", "pallas"),
+    "upsample_impl": ("auto", "lerp", "mxu"),
+    # the TPU sweep's d-chunk depth: any positive int
+    "wta_d_chunk": lambda v: isinstance(v, int) and v >= 1,
+}
+_JAX_SGBM_SELECTORS = {
+    "agg_impl": ("auto", "xla", "pallas"),
+}
+
+SGBM_DIRECTIONS = {"hh": 8, "sgbm": 5, "3way": 3}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,13 +66,7 @@ class GIFConfig:
     wmf_sigma: float = 25.5
     wmf_n_feat: int = 256
     wmf_mode: str = "exact"
-    wmf_impl: str = "auto"
-    upsample_impl: str = "auto"
-    wta_impl: str = "auto"
-    cvc_impl: str = "auto"
-    tail_fusion: str = "maps"
     cvc_dtype: str = "f32"
-    wta_d_chunk: int = 32
     sig_clr: float = 0.1
     sig_dis: float = 9.0
     pp_toolchain: bool = False
@@ -93,6 +101,44 @@ class GIFConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SGBMConfig:
+    """STEREO_SGBM parameters (reference: src/StereoMatch.cpp:639-660).
+    `num_channels` is the channel count of the images the penalties were
+    chosen for; `stereo_sgbm_forward` checks its inputs against it."""
+
+    min_disparity: int = 0
+    num_disparities: int = 64
+    block_size: int = 5
+    p1: int = 8 * 3 * 25         # 8 * channels * SADWindowSize^2
+    p2: int = 32 * 3 * 25
+    disp12_max_diff: int = 1
+    pre_filter_cap: int = 63
+    uniqueness_ratio: int = 10
+    speckle_window_size: int = 100
+    speckle_range: int = 32
+    mode: str = "hh"             # hh | sgbm | 3way ('m' key cycle, main.cpp:161-163)
+    num_channels: int = 3
+
+    def __post_init__(self):
+        if self.mode not in SGBM_DIRECTIONS:
+            raise ValueError(
+                f"unknown SGBM mode {self.mode!r}; one of {tuple(SGBM_DIRECTIONS)}"
+            )
+        if self.num_disparities < 1 or self.block_size < 1 or self.num_channels < 1:
+            raise ValueError(
+                "num_disparities, block_size and num_channels must be >= 1"
+            )
+        if self.pre_filter_cap < 0:
+            raise ValueError(f"pre_filter_cap must be >= 0, got {self.pre_filter_cap}")
+
+    @property
+    def num_directions(self) -> int:
+        """MODE_HH = 8 directions, MODE_SGBM = the causal 5,
+        MODE_SGBM_3WAY = {W->E, E->W, N->S}."""
+        return SGBM_DIRECTIONS[self.mode]
+
+
+@dataclasses.dataclass(frozen=True)
 class EvalConfig:
     """Ground-truth %BP evaluation parameters."""
 
@@ -106,11 +152,30 @@ class EvalConfig:
         return self.error_threshold * (127 // self.max_dis)
 
 
-def from_jax_config(fields: dict) -> GIFConfig:
-    """Build the port's GIFConfig from `dataclasses.asdict()` of the JAX
-    package's GIFConfig. Raises on keys this config does not know."""
-    known = {f.name for f in dataclasses.fields(GIFConfig)}
+def _from_jax(cls, fields: dict, selectors: dict):
+    fields = dict(fields)
+    for key, allowed in selectors.items():
+        if key not in fields:
+            continue
+        value = fields.pop(key)
+        if not (allowed(value) if callable(allowed) else value in allowed):
+            raise ValueError(f"JAX {cls.__name__}.{key}={value!r} is not allowed")
+    known = {f.name for f in dataclasses.fields(cls)}
     unknown = sorted(set(fields) - known)
     if unknown:
-        raise ValueError(f"unknown GIFConfig keys: {unknown}")
-    return GIFConfig(**fields)
+        raise ValueError(f"unknown {cls.__name__} keys: {unknown}")
+    return cls(**fields)
+
+
+def from_jax_config(fields: dict) -> GIFConfig:
+    """Build the port's GIFConfig from `dataclasses.asdict()` of the JAX
+    package's GIFConfig. The TPU selectors and `wta_d_chunk` are checked
+    and dropped; other keys this config does not know raise."""
+    return _from_jax(GIFConfig, fields, _JAX_GIF_SELECTORS)
+
+
+def from_jax_sgbm_config(fields: dict) -> SGBMConfig:
+    """Build the port's SGBMConfig from `dataclasses.asdict()` of the JAX
+    package's SGBMConfig. `agg_impl` is checked and dropped; other keys
+    this config does not know raise."""
+    return _from_jax(SGBMConfig, fields, _JAX_SGBM_SELECTORS)

@@ -1,5 +1,9 @@
-"""Hand-written CUDA kernels of the main path, each beside its plain
-PyTorch version. Nothing is built or loaded at import time."""
+"""Hand-written CUDA kernels of the main paths, each beside its plain
+PyTorch version. Nothing is built or loaded at import time.
+
+STEREO_GIF: K1 low-maps, K2 upsample+WTA, K3 JointWMF.
+STEREO_SGBM: K6 BT cost, K7 SGM scans, K8 selection, K9 speckle sweep.
+"""
 
 from primestereomatch_torch.kernels._build import (  # noqa: F401
     LAUNCHES,
@@ -10,6 +14,22 @@ from primestereomatch_torch.kernels.lowmaps import (  # noqa: F401
     fgf_low_maps_batched,
     low_maps,
     low_maps_plain,
+)
+from primestereomatch_torch.kernels.speckle import (  # noqa: F401
+    segmin_sweep,
+    segmin_sweep_plain,
+)
+from primestereomatch_torch.kernels.bt_cost import (  # noqa: F401
+    bt_cost,
+    bt_cost_plain,
+)
+from primestereomatch_torch.kernels.sgbm_scan import (  # noqa: F401
+    sgbm_aggregate,
+    sgbm_aggregate_plain,
+)
+from primestereomatch_torch.kernels.select import (  # noqa: F401
+    select_disparity,
+    select_disparity_plain,
 )
 from primestereomatch_torch.kernels.wmf import (  # noqa: F401
     weighted_median,

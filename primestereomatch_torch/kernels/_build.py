@@ -42,6 +42,11 @@ _ARGTYPES = {
     "wta": ("psm_upsample_wta",
             [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP]),
     "wmf": ("psm_joint_wmf", [_VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]),
+    "bt_cost": ("psm_bt_cost", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP]),
+    "sgbm_scan": ("psm_sgm_scan",
+                  [_VP, _I, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP]),
+    "select": ("psm_select_disparity", [_VP, _VP, _I, _I, _I, _I, _I, _I, _VP]),
+    "speckle": ("psm_segmin_sweep", [_VP, _VP, _VP, _I, _I, _I, _VP]),
 }
 NAMES = tuple(_ARGTYPES)
 LAUNCHES = {name: 0 for name in NAMES}

@@ -2,3 +2,8 @@ from primestereomatch_torch.models.gif_pipeline import (  # noqa: F401
     StereoGIF,
     stereo_gif_forward,
 )
+from primestereomatch_torch.models.sgbm_pipeline import (  # noqa: F401
+    StereoSGBM,
+    sgbm_display_u8,
+    stereo_sgbm_forward,
+)

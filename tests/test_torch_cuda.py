@@ -71,8 +71,91 @@ def test_forward_on_card_matches_cpu(dev):
     cfg = GIFConfig(max_dis=16, med_sz=7)
     K.reset_launches()
     got = stereo_gif_forward(left, right, cfg)
-    assert min(K.LAUNCHES.values()) == 1
+    assert all(K.LAUNCHES[n] == 1 for n in ("lowmaps", "wta", "wmf"))
     want = stereo_gif_forward(left, right, cfg, device="cpu")
     for a, b in zip(got, want):
         assert a.device.type == "cuda"
         assert (a.cpu() != b).float().mean() <= 2e-3
+
+
+# ---- STEREO_SGBM: K6-K9, bitwise equal to their plain versions -----------
+
+def _features(dev, H, W, C, cap, seed):
+    rng = np.random.default_rng(seed)
+    lf = torch.as_tensor(rng.integers(0, 2 * cap + 1, (H, W, C), dtype=np.int32), device=dev)
+    rf = torch.as_tensor(rng.integers(0, 2 * cap + 1, (H, W, C), dtype=np.int32), device=dev)
+    return lf, rf
+
+
+@pytest.mark.parametrize("H,W,C,D,k,cap", [
+    (37, 75, 3, 24, 5, 63),        # D % 8 != 0
+    (40, 70, 3, 16, 3, 100),       # 2 * cap > 127
+    (30, 90, 3, 16, 11, 63),       # cost bound >= 2**15: int32
+    (33, 50, 1, 8, 4, 63),         # one channel, even window
+    (20, 140, 3, 70, 5, 63),       # D > 64, several d blocks
+])
+def test_bt_cost_kernel_matches_plain(dev, H, W, C, D, k, cap):
+    lf, rf = _features(dev, H, W, C, cap, H + D)
+    bound = k * k * C * 2 * cap
+    K.reset_launches()
+    got = K.bt_cost(lf, rf, D, k, bound)
+    assert K.LAUNCHES["bt_cost"] == 2
+    want = K.bt_cost_plain(lf, rf, D, k, bound)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nd", [3, 5, 8])
+@pytest.mark.parametrize("H,W,D,dtype", [
+    (29, 47, 16, torch.int16), (19, 61, 24, torch.int32), (23, 17, 70, torch.int16),
+    (5, 40, 1, torch.int16), (4, 7, 1500, torch.int16),
+])
+def test_sgbm_scan_kernel_matches_plain(dev, nd, H, W, D, dtype):
+    rng = np.random.default_rng(H * W + nd)
+    cost = torch.as_tensor(rng.integers(0, 9450, (H, W, D)), dtype=dtype, device=dev)
+    K.reset_launches()
+    got = K.sgbm_aggregate(cost, 600, 2400, nd)
+    assert K.LAUNCHES["sgbm_scan"] == {3: 2, 5: 4, 8: 4}[nd]
+    assert torch.equal(got, K.sgbm_aggregate_plain(cost, 600, 2400, nd))
+
+
+@pytest.mark.parametrize("min_d", [-20, -3, 0, 3, 7])
+@pytest.mark.parametrize("uniq,d12", [(10, 1), (0, 0), (10, -1)])
+def test_select_kernel_matches_plain(dev, min_d, uniq, d12):
+    rng = np.random.default_rng(abs(min_d) + uniq + d12)
+    S = torch.as_tensor(rng.integers(0, 5000, (21, 96, 16), dtype=np.int32), device=dev)
+    got = K.select_disparity(S, uniq, d12, min_d)
+    assert torch.equal(got, K.select_disparity_plain(S, uniq, d12, min_d))
+
+
+def test_select_kernel_degenerate(dev):
+    D = 8
+    d_idx = torch.arange(D, device=dev, dtype=torch.int32)
+    for S in ((d_idx - 3).abs() * 1000 + 10, torch.full((D,), 100, dtype=torch.int32,
+                                                       device=dev)):
+        S = S.expand(16, 80, D).contiguous()
+        assert torch.equal(K.select_disparity(S, 10, 1), K.select_disparity_plain(S, 10, 1))
+
+
+@pytest.mark.parametrize("H,W", [(24, 40), (17, 150), (130, 33), (1, 70)])
+def test_segmin_sweep_kernel_matches_plain(dev, H, W):
+    rng = np.random.default_rng(H + W)
+    m = torch.as_tensor(rng.integers(0, H * W, (H, W), dtype=np.int32), device=dev)
+    conn = torch.as_tensor(rng.random((H, W)) < 0.7, device=dev).to(torch.uint8)
+    for axis in (0, 1):
+        assert torch.equal(K.segmin_sweep(m, conn, axis), K.segmin_sweep_plain(m, conn, axis))
+
+
+@pytest.mark.parametrize("mode", ["hh", "sgbm", "3way"])
+def test_sgbm_forward_on_card_matches_cpu(dev, mode):
+    from primestereomatch_torch import SGBMConfig, stereo_sgbm_forward
+
+    rng = np.random.default_rng(9)
+    left = rng.integers(0, 256, (60, 130, 3), dtype=np.uint8)
+    right = np.roll(left, -5, axis=1)
+    cfg = SGBMConfig(num_disparities=16, mode=mode, speckle_window_size=20)
+    K.reset_launches()
+    got = stereo_sgbm_forward(left, right, cfg)
+    assert got.device.type == "cuda" and got.dtype == torch.int16
+    for name in ("bt_cost", "sgbm_scan", "select", "speckle"):
+        assert K.LAUNCHES[name] >= 1, name
+    assert torch.equal(got.cpu(), stereo_sgbm_forward(left, right, cfg, device="cpu"))

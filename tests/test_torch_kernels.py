@@ -136,22 +136,35 @@ def _wrapper_inputs():
     return g, p, stats, disp, guide_u8
 
 
-@pytest.mark.parametrize("name", ["lowmaps", "wta", "wmf"])
+@pytest.mark.parametrize("name", ["lowmaps", "wta", "wmf", "bt_cost", "sgbm_scan", "select",
+                                  "speckle"])
 def test_wrappers_on_cpu_run_plain_and_count_nothing(name):
     """Given CPU tensors each wrapper returns its plain version's result and
     launches nothing."""
     g, p, stats, disp, guide_u8 = _wrapper_inputs()
     maps = K.low_maps_plain(p, stats, 5)
+    rng = np.random.default_rng(3)
+    ftr = [torch.as_tensor(rng.integers(0, 127, (20, 30, 3), dtype=np.int32)) for _ in range(2)]
+    S = torch.as_tensor(rng.integers(0, 5000, (12, 40, 8), dtype=np.int32))
+    conn = torch.as_tensor(rng.integers(0, 2, (12, 40), dtype=np.uint8))
     K.reset_launches()
     if name == "lowmaps":
         got, want = K.low_maps(p, stats, 5), maps
     elif name == "wta":
         got, want = K.upsample_wta(g, maps), K.upsample_wta_plain(g, maps)
-    else:
+    elif name == "wmf":
         got = K.weighted_median(disp, guide_u8, 4, 8, 25.5)
         want = K.weighted_median_plain(disp, guide_u8, 4, 8, 25.5)
+    elif name == "bt_cost":
+        got, want = K.bt_cost(*ftr, 8, 5, 9450), K.bt_cost_plain(*ftr, 8, 5, 9450)
+    elif name == "sgbm_scan":
+        got, want = K.sgbm_aggregate(S, 600, 2400), K.sgbm_aggregate_plain(S, 600, 2400)
+    elif name == "select":
+        got, want = K.select_disparity(S, 10, 1), K.select_disparity_plain(S, 10, 1)
+    else:
+        got, want = K.segmin_sweep(S[..., 0], conn, 1), K.segmin_sweep_plain(S[..., 0], conn, 1)
     assert torch.equal(got, want)
-    assert K.LAUNCHES == {"lowmaps": 0, "wta": 0, "wmf": 0}
+    assert set(K.LAUNCHES.values()) == {0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -20,6 +20,8 @@ from primestereomatch_torch.utils import bad_pixel_metrics, load_dataset
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN_NONOCC = {"Teddy": 17.229, "Cones": 9.072}
+TPU_SELECTORS = ("tail_fusion", "cvc_impl", "wta_impl", "wmf_impl", "upsample_impl",
+                 "wta_d_chunk")
 
 
 @pytest.fixture(scope="module")
@@ -56,8 +58,10 @@ def test_crop_matches_jax_pipeline(crop, run_postprocess):
                  wta_impl="xla", tail_fusion="full"),
 ], ids=["default", "s2_d32_tau"])
 def test_from_jax_config_round_trips(jax_cfg):
+    """Every field the port reads comes across; the TPU selectors are dropped."""
     cfg = from_jax_config(dataclasses.asdict(jax_cfg))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_cfg)
+    assert dataclasses.asdict(cfg) == {k: v for k, v in dataclasses.asdict(jax_cfg).items()
+                                       if k not in TPU_SELECTORS}
     assert cfg.fgf_low_radius == jax_cfg.fgf_low_radius
     assert cfg.wmf_radius == jax_cfg.wmf_radius
 
@@ -78,11 +82,18 @@ def test_from_jax_config_rejects_unknown_keys():
 @pytest.mark.parametrize("field,value", [
     ("tail_fusion", "fused"), ("cvc_impl", "pallas"), ("wta_impl", "triton"),
     ("wmf_impl", "cuda"), ("upsample_impl", "nearest"), ("cvc_dtype", "f16"),
-    ("wmf_mode", "approx"), ("max_dis", 300),
+    ("wmf_mode", "approx"), ("max_dis", 300), ("wta_d_chunk", 0),
 ])
 def test_config_rejects_unknown_values(field, value):
+    """Unknown values raise: the port's own fields in GIFConfig, the TPU
+    selectors (which GIFConfig no longer has) in from_jax_config."""
     with pytest.raises(ValueError):
-        GIFConfig(**{field: value})
+        if field in TPU_SELECTORS:
+            from_jax_config({**dataclasses.asdict(JaxGIFConfig()), field: value})
+        else:
+            GIFConfig(**{field: value})
+    if field in TPU_SELECTORS:
+        assert field not in {f.name for f in dataclasses.fields(GIFConfig)}
 
 
 @pytest.mark.parametrize("field,value", [

@@ -1,0 +1,356 @@
+"""The port's STEREO_SGBM slice held against the JAX package on the CPU: the
+plain versions of K6-K9 against the JAX ops, the NumPy oracle
+(tests/oracle_sgbm.py) and the Pallas kernels in interpret mode, and the
+pipeline end to end. Tolerance: exact equality everywhere (every stage is
+integer). The CUDA kernels are held against these plain versions on the
+card (tests/test_torch_cuda.py, chip_smoke.py)."""
+
+import dataclasses
+import hashlib
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import chip_smoke
+import tests.oracle_sgbm as oracle
+from primestereomatch_tpu.config import SGBMConfig as JaxSGBMConfig
+from primestereomatch_tpu.kernels.select_pallas import select_disparity_partials_pallas
+from primestereomatch_tpu.kernels.sgbm_pallas import (
+    bt_block_cost_pallas,
+    sgbm_aggregate_partials_pallas,
+)
+from primestereomatch_tpu.kernels.speckle_pallas import segmin_sweep_pallas
+from primestereomatch_tpu.models.sgbm_pipeline import sgbm_display_u8 as jax_display
+from primestereomatch_tpu.models.sgbm_pipeline import stereo_sgbm_forward as jax_forward
+from primestereomatch_tpu.ops import sgbm as jops
+from primestereomatch_tpu.utils import load_dataset as jax_load
+from primestereomatch_torch import (
+    SGBMConfig,
+    StereoSGBM,
+    from_jax_sgbm_config,
+    kernels as K,
+    sgbm_display_u8,
+    stereo_sgbm_forward,
+)
+from primestereomatch_torch.ops import sgbm as ops
+
+CAP = 63
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """tests/test_sgbm.py's pair: 16x24, right = left shifted ~3 px + noise."""
+    rng = np.random.default_rng(7)
+    left = rng.integers(0, 256, (16, 24, 3), dtype=np.uint8)
+    right = np.roll(left, -3, axis=1)
+    right = np.clip(right.astype(np.int32) + rng.integers(-6, 7, right.shape), 0, 255)
+    return left, right.astype(np.uint8)
+
+
+def _features(seed, H, W, C=3, cap=CAP):
+    rng = np.random.default_rng(seed)
+    img = [rng.integers(0, 256, (H, W, C), dtype=np.uint8) for _ in range(2)]
+    return [oracle.sobel_xclip(i, cap).astype(np.int32) for i in img]
+
+
+def test_sobel_xclip(pair):
+    for img in pair:
+        got = ops.sobel_xclip(_t(img), CAP)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jops.sobel_xclip(jnp.asarray(img),
+                                                                              CAP)))
+        np.testing.assert_array_equal(got.numpy(), oracle.sobel_xclip(img, CAP))
+
+
+@pytest.mark.parametrize("D", [8, 24])
+@pytest.mark.parametrize("k", [3, 5])
+def test_bt_block_cost_matches_jax_and_pallas(D, k):
+    lf, rf = _features(D + k, 20, 30)
+    bound = k * k * 3 * 2 * CAP
+    got = ops.bt_block_cost(_t(lf), _t(rf), D, k, bound)
+    want = np.asarray(jops.bt_block_cost(jnp.asarray(lf), jnp.asarray(rf), D, k,
+                                         cost_bound=bound, feat_bound=2 * CAP))
+    assert got.dtype == torch.int16 and want.dtype == np.int16
+    np.testing.assert_array_equal(got.numpy(), want)
+    dhw = ops.bt_block_cost(_t(lf), _t(rf), D, k, bound, out_layout="dhw")
+    np.testing.assert_array_equal(dhw.permute(1, 2, 0).numpy(), want)
+    pallas = np.asarray(bt_block_cost_pallas(jnp.asarray(lf), jnp.asarray(rf), D, k,
+                                             cost_bound=bound, interpret=True))
+    np.testing.assert_array_equal(dhw.numpy(), pallas[:, :20, :30])
+    # the kernel wrapper takes the plain version for CPU tensors
+    np.testing.assert_array_equal(K.bt_cost(_t(lf), _t(rf), D, k, bound).numpy(), want)
+
+
+@pytest.mark.parametrize("k,C,cap", [(11, 3, CAP), (5, 3, 100), (4, 1, CAP)])
+def test_bt_block_cost_wide_ranges(k, C, cap):
+    """The ranges the TPU kernel leaves to XLA: a cost bound >= 2**15 (int32
+    out), features above 127, one channel, an even window."""
+    lf, rf = _features(k + C, 18, 26, C, cap)
+    bound = k * k * C * 2 * cap
+    got = ops.bt_block_cost(_t(lf), _t(rf), 12, k, bound)
+    want = np.asarray(jops.bt_block_cost(jnp.asarray(lf), jnp.asarray(rf), 12, k,
+                                         cost_bound=bound, feat_bound=2 * cap))
+    assert got.numpy().dtype == want.dtype == (np.int16 if bound < 2**15 else np.int32)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy().astype(np.int64), oracle.block_cost(oracle.bt_cost(lf, rf, 12), k))
+
+
+@pytest.mark.parametrize("nd", [3, 5, 8])
+def test_aggregate_matches_jax_and_pallas(nd):
+    rng = np.random.default_rng(nd)
+    H, W, D, bound = 26, 44, 16, 9450
+    C = rng.integers(0, bound, (H, W, D)).astype(np.int32)
+    got = ops.aggregate(_t(C).to(torch.int16), 600, 2400, nd)
+    assert got.dtype == torch.int32
+    want = np.asarray(jops.aggregate(jnp.asarray(C), 600, 2400, nd, cost_bound=bound))
+    np.testing.assert_array_equal(got.numpy(), want)
+    parts = sgbm_aggregate_partials_pallas(jnp.asarray(C), 600, 2400, nd, cost_bound=bound,
+                                           interpret=True)
+    S = sum(np.asarray(q)[:H, :, :W].astype(np.int64) for q in parts)
+    np.testing.assert_array_equal(got.permute(0, 2, 1).numpy(), S)
+    np.testing.assert_array_equal(K.sgbm_aggregate(_t(C), 600, 2400, nd).numpy(), want)
+
+
+@pytest.mark.parametrize("nd", [3, 5, 8])
+def test_aggregate_matches_oracle(pair, nd):
+    lf, rf = (oracle.sobel_xclip(i, CAP) for i in pair)
+    C = oracle.block_cost(oracle.bt_cost(lf, rf, 8), 5)
+    got = ops.aggregate(_t(C.astype(np.int32)), 24, 96, nd)
+    np.testing.assert_array_equal(got.numpy(), oracle.aggregate(C, 24, 96, nd))
+
+
+def _random_S(seed, H=20, W=96, D=16):
+    return np.random.default_rng(seed).integers(0, 5000, (H, W, D)).astype(np.int32)
+
+
+@pytest.mark.parametrize("min_d", [-3, 0, 3, 7])
+@pytest.mark.parametrize("uniq,d12", [(0, -1), (0, 0), (0, 1), (10, -1), (10, 0), (10, 1)])
+def test_select_matches_jax(min_d, uniq, d12):
+    S = _random_S(21 + min_d)
+    got = ops.select_disparity_hdw(_t(S.transpose(0, 2, 1)), uniq, d12, min_d)
+    assert got.dtype == torch.int16
+    want = np.asarray(jops.select_disparity_hdw(jnp.asarray(S.transpose(0, 2, 1)), uniq, d12,
+                                                min_d))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jops.select_disparity(jnp.asarray(S), uniq, d12, min_d)))
+    np.testing.assert_array_equal(K.select_disparity(_t(S), uniq, d12, min_d).numpy(), want)
+
+
+@pytest.mark.parametrize("min_d,uniq,d12", [(0, 10, 1), (0, 0, -1), (3, 10, 1), (7, 10, 0)])
+def test_select_matches_pallas(min_d, uniq, d12):
+    """Both TPU select kernels (two-pass, and one-pass with a value bound)
+    where they run: min_disparity >= 0."""
+    S = _random_S(5 + min_d, H=18, W=80)
+    got = ops.select_disparity_hdw(_t(S.transpose(0, 2, 1)), uniq, d12, min_d).numpy()
+    part = (jnp.asarray(S.transpose(0, 2, 1)),)
+    for vb in (None, 5000):
+        pallas = select_disparity_partials_pallas(part, (18, 80), uniq, d12, min_d,
+                                                  value_bound=vb, interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(pallas))
+
+
+def test_select_far_negative_min_disparity_follows_oracle():
+    """min_disparity = -20 (< -D): left pixels with x < d_best scatter to
+    right pixels in the image. The port keeps them as the oracle and the
+    JAX package's `select_disparity` do."""
+    S = _random_S(21)
+    for d12 in (1, 0):
+        got = ops.select_disparity_hdw(_t(S.transpose(0, 2, 1)), 10, d12, -20).numpy()
+        np.testing.assert_array_equal(got, oracle.select_disparity(S.astype(np.int64), 10, d12,
+                                                                   -20))
+        np.testing.assert_array_equal(got, np.asarray(jops.select_disparity(jnp.asarray(S), 10,
+                                                                            d12, -20)))
+
+
+def test_select_degenerate_tiles():
+    """A constant winner everywhere, and a flat volume where nothing is
+    unique (no scatter candidates at all)."""
+    H, W, D = 16, 80, 8
+    d_idx = np.arange(D)[None, None, :]
+    for S in (np.broadcast_to(np.abs(d_idx - 3) * 1000 + 10, (H, W, D)),
+              np.full((H, W, D), 100)):
+        S = np.ascontiguousarray(S, dtype=np.int32)
+        got = ops.select_disparity_hdw(_t(S.transpose(0, 2, 1)), 10, 1, 0).numpy()
+        want = np.asarray(jops.select_disparity_hdw(jnp.asarray(S.transpose(0, 2, 1)), 10, 1, 0))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, oracle.select_disparity(S.astype(np.int64), 10, 1, 0))
+    assert (got == -16).all()
+
+
+@pytest.mark.parametrize("H,W", [(24, 40), (17, 150), (130, 33)])
+def test_segmin_sweep_plain_matches_pallas(H, W):
+    rng = np.random.default_rng(H * W)
+    m = rng.integers(0, H * W, (H, W)).astype(np.int32)
+    conn_lf = rng.random((H, W)) < 0.7
+    conn_lf[:, 0] = False
+    conn_up = rng.random((H, W)) < 0.7
+    conn_up[0] = False
+    for axis, conn in ((1, conn_lf), (0, conn_up)):
+        got = K.segmin_sweep(_t(m), _t(conn.astype(np.uint8)), axis)
+        want = segmin_sweep_pallas(jnp.asarray(m), jnp.asarray(conn), axis=axis, interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _serpentine(H=32, W=32):
+    d = np.full((H, W), -16, np.int16)
+    d[0::2] = 160
+    for i, y in enumerate(range(1, H - 1, 2)):
+        d[y, W - 1 if i % 2 == 0 else 0] = 160
+    return d
+
+
+def test_filter_speckles_matches_jax_and_oracle():
+    rng = np.random.default_rng(7)
+    d = (rng.integers(0, 6, (48, 64)) * 48).astype(np.int16)
+    d[rng.random((48, 64)) < 0.3] = -16
+    want = oracle.filter_speckles(d, 24, 32, -16)
+    np.testing.assert_array_equal(np.asarray(jops.filter_speckles(jnp.asarray(d), 24, 32, -16)),
+                                  want)
+    for spc in (1, 2, 3):
+        got = ops.filter_speckles(_t(d), 24, 32, -16, steps_per_check=spc)
+        assert got.dtype == torch.int16
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_filter_speckles_serpentine():
+    """One 527-pixel component whose path bends 31 times: it converges
+    without a cap and survives; with `max_iters` the sweeps stop where the
+    JAX op's do."""
+    d = _serpentine()
+    got = ops.filter_speckles(_t(d), 400, 32, -16).numpy()
+    np.testing.assert_array_equal(got, oracle.filter_speckles(d, 400, 32, -16))
+    assert (got != -16).sum() == 527
+    for cap in (2, 6):
+        got = ops.filter_speckles(_t(d), 400, 32, -16, max_iters=cap).numpy()
+        want = jops.filter_speckles(jnp.asarray(d), 400, 32, -16, max_iters=cap)
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("mode", ["hh", "sgbm", "3way"])
+def test_forward_matches_jax_and_oracle(pair, mode):
+    kw = dict(num_disparities=8, block_size=5, p1=24, p2=96, speckle_window_size=10,
+              speckle_range=2, mode=mode)
+    got = stereo_sgbm_forward(*pair, SGBMConfig(**kw), device="cpu")
+    assert got.dtype == torch.int16 and got.shape == pair[0].shape[:2]
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_forward(*map(jnp.asarray, pair), JaxSGBMConfig(**kw))))
+    lf, rf = (oracle.sobel_xclip(i, CAP) for i in pair)
+    S = oracle.aggregate(oracle.block_cost(oracle.bt_cost(lf, rf, 8), 5), 24, 96,
+                         SGBMConfig(**kw).num_directions)
+    want = oracle.filter_speckles(oracle.select_disparity(S, 10, 1, 0), 10, 32, -16)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("mode,min_d", [("hh", 0), ("3way", 4)])
+def test_teddy_crop_matches_jax(mode, min_d):
+    s = jax_load("Teddy")
+    left = np.ascontiguousarray(s.left_bgr[120:216, 150:310])
+    right = np.ascontiguousarray(s.right_bgr[120:216, 150:310])
+    kw = dict(num_disparities=16, mode=mode, min_disparity=min_d)
+    got = stereo_sgbm_forward(left, right, SGBMConfig(**kw), device="cpu")
+    want = np.asarray(jax_forward(jnp.asarray(left), jnp.asarray(right), JaxSGBMConfig(**kw)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_full_teddy_default_matches_jax_and_chip_constants():
+    """Full Teddy with SGBMConfig(): the port equals JAX bit for bit, and
+    JAX's Teddy and Cones outputs hash to the constants chip_smoke.py holds
+    the card's outputs to."""
+    outs = {}
+    for name in ("Teddy", "Cones"):
+        s = jax_load(name)
+        outs[name] = np.asarray(jax_forward(jnp.asarray(s.left_bgr), jnp.asarray(s.right_bgr),
+                                            JaxSGBMConfig()))
+        assert hashlib.sha256(outs[name].tobytes()).hexdigest() == chip_smoke.SGBM_SHA256[name]
+    s = jax_load("Teddy")
+    got = stereo_sgbm_forward(s.left_bgr, s.right_bgr, SGBMConfig(), device="cpu")
+    np.testing.assert_array_equal(got.numpy(), outs["Teddy"])
+
+
+@pytest.mark.parametrize("mode", ["canonical", "reference"])
+def test_display_matches_jax(mode):
+    rng = np.random.default_rng(5)
+    for sf in (1, 3, 4):
+        d16 = rng.integers(-16, 64 * 16, (37, 53)).astype(np.int16)
+        got = sgbm_display_u8(_t(d16), sf, 64, mode=mode)
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(jax_display(jnp.asarray(d16), sf, 64, mode)))
+
+
+@pytest.mark.parametrize("jax_cfg", [
+    JaxSGBMConfig(),
+    JaxSGBMConfig(mode="3way", num_disparities=24, min_disparity=-3, agg_impl="xla",
+                  speckle_window_size=0),
+], ids=["default", "3way_d24"])
+def test_from_jax_sgbm_config_round_trips(jax_cfg):
+    cfg = from_jax_sgbm_config(dataclasses.asdict(jax_cfg))
+    want = {k: v for k, v in dataclasses.asdict(jax_cfg).items() if k != "agg_impl"}
+    assert dataclasses.asdict(cfg) == want
+    assert cfg.num_directions == jax_cfg.num_directions
+
+
+@pytest.mark.parametrize("fields", [
+    {"agg_impl": "cuda"}, {"agg_impl": None}, {"block_sz": 5}, {"mode": "full"},
+], ids=["agg_impl", "agg_impl_none", "unknown_key", "mode"])
+def test_sgbm_config_rejections(fields):
+    with pytest.raises(ValueError):
+        from_jax_sgbm_config({**dataclasses.asdict(JaxSGBMConfig()), **fields})
+
+
+def test_forward_rejects_bad_input(pair):
+    left, right = pair
+    with pytest.raises(TypeError):
+        stereo_sgbm_forward(left.astype(np.float32), right.astype(np.float32), device="cpu")
+    with pytest.raises(TypeError):
+        stereo_sgbm_forward(left[..., 0], right[..., 0], device="cpu")     # (H, W)
+    with pytest.raises(ValueError):
+        stereo_sgbm_forward(left, right[:, :-1], device="cpu")
+    with pytest.raises(ValueError):
+        stereo_sgbm_forward(left[..., :1], right[..., :1], device="cpu")   # 1 channel, cfg 3
+
+
+def test_forward_without_device_needs_cuda(pair):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        stereo_sgbm_forward(*pair)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StereoSGBM()
+
+
+def test_module_matches_function(pair):
+    cfg = SGBMConfig(num_disparities=8, p1=24, p2=96, speckle_window_size=10)
+    a = StereoSGBM(cfg, device="cpu")(*pair)
+    assert torch.equal(a, stereo_sgbm_forward(*pair, cfg, device="cpu"))
+
+
+def test_sgbm_wrappers_reject_what_the_kernels_do_not_take():
+    f = torch.zeros((8, 12, 3), dtype=torch.int32)
+    S = torch.zeros((8, 12, 4), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        K.bt_cost(f.float(), f, 4, 3)
+    with pytest.raises(ValueError):
+        K.bt_cost(f, f[:, :-1], 4, 3)
+    with pytest.raises(ValueError):
+        K.bt_cost(f, f, 0, 3)
+    with pytest.raises(TypeError):
+        K.sgbm_aggregate(S.float(), 8, 32)
+    with pytest.raises(ValueError):
+        K.sgbm_aggregate(S, 8, 32, num_directions=4)
+    with pytest.raises(TypeError):
+        K.select_disparity(S.to(torch.int16), 10, 1)
+    with pytest.raises(ValueError):
+        K.select_disparity(S[0], 10, 1)
+    with pytest.raises(TypeError):
+        K.segmin_sweep(S[..., 0], S[..., 0], 1)
+    with pytest.raises(ValueError):
+        K.segmin_sweep(S[..., 0], S[..., 0].to(torch.uint8), 2)
