@@ -6,28 +6,39 @@
 Phases (each prints its lines; any failed check raises and exits non-zero):
 
   1. the card's name and power limit, as nvidia-smi prints them;
-  2. build the seven CUDA kernels from csrc/ (one nvcc per source, in
+  2. build the nine CUDA kernels from csrc/ (one nvcc per source, in
      parallel) and print the build seconds and ptxas resource lines;
   3. parity on the card, each kernel against its plain PyTorch version on
-     the same CUDA tensors, at the Teddy shapes and the 2K shapes: GIF
-     (K1-K3) at D=64, 375x450, maps 93x112 and D=256, 1242x2208, maps
-     310x552; SGBM (K6-K9, bitwise) at Teddy D=64 and the 2K pair rounded
-     to uint8, D=256;
+     the same CUDA tensors: GIF K1-K3 at the Teddy shapes (D=64, 375x450,
+     maps 93x112) and the 2K shapes (D=256, 1242x2208, maps 310x552); K1 and
+     K2 also at subsample=1 on Teddy (a 17x17 box, maps at full resolution,
+     upsampling ratio 1: the TPU's generic-ratio kernel K5); K4 (cost +
+     low-maps, bitwise expected) and K10 (cost + chain + WTA, also against
+     K4 -> K2 on the card, 0 differing pixels expected) at a seeded ZED-VGA
+     pair (376x672, D=64) and the 2K pair; SGBM (K6-K9, bitwise) at Teddy
+     D=64 and the 2K pair rounded to uint8, D=256;
   4. the main paths, each with every launch count set to 0 just before it
-     and read just after. GIF: Teddy and Cones end to end, %BP(nonocc)
-     within 0.3 of the reference binary's 17.229 / 9.072, then a 2K frame
-     (max_dis=256) on a seeded textured pair whose right view is the left
-     one shifted by a known disparity field. SGBM (SGBMConfig()): Teddy and
+     and read just after, and its kernels (and no others) asserted. GIF:
+     Teddy and Cones end to end (K1, K2, K3), %BP(nonocc) within 0.3 of the
+     reference binary's 17.229 / 9.072; a 2K frame (max_dis=256) on a
+     seeded textured pair whose right view is the left one shifted by a
+     known disparity field (K4, K2, K3); the same frame with
+     tail_fusion='full' (K10, K3), which must recover the field and agree
+     with the maps path within 2e-3; Teddy at subsample=1 (K1, K2, K3); and
+     a batch of four Teddy-size frames through stereo_gif_forward_batch,
+     each equal to its single-frame output. SGBM (SGBMConfig()): Teddy and
      Cones, whose int16 outputs must hash to the JAX package's (sha256) and
      meet the cv2-golden bounds of tests/test_sgbm_cv2_golden.py, then the
      2K pair with num_disparities=256, whose interior medians must be the
      field's 96 and 48 within 1;
   5. times with CUDA events (3 warm-up, 20 timed launches; 1 and 2 for
-     the slow SGBM plain versions at 2K) of each kernel and its plain
-     version at both shapes, end-to-end frame times (host clock,
-     synchronised), a torch.profiler pass over 5 frames per shape and
-     path for the device time by kernel and the device's idle share, the
-     speckle sweeps and host syncs per SGBM frame, and peak device memory;
+     the slow SGBM plain versions at 2K, 1 and 3 for the fused tails' plain
+     versions at 2K) of each kernel and its plain version, end-to-end frame
+     times (host clock, synchronised; 10 frames for the 2K GIF paths), a
+     torch.profiler pass over 5 frames per shape and path for the device
+     time by kernel and the device's idle share, the speckle sweeps and
+     host syncs per SGBM frame, and peak device memory (one 2K frame on
+     the maps path and on the full path side by side);
   6. one JSON line listing the kernels, then the final status JSON line.
 
 Needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and the package
@@ -50,8 +61,9 @@ import torch
 import primestereomatch_torch as psm
 from primestereomatch_torch import kernels as K
 from primestereomatch_torch.kernels import _build
-from primestereomatch_torch.models.gif_pipeline import _to_u8, sampled_cost_volumes
+from primestereomatch_torch.models.gif_pipeline import _to_u8, stacked_views
 from primestereomatch_torch.ops import sgbm as sgbm_ops
+from primestereomatch_torch.ops.cost_volume import sampled_cost_volumes
 from primestereomatch_torch.ops.guided_filter import guide_stats
 from primestereomatch_torch.utils import bad_pixel_metrics, load_dataset
 
@@ -70,16 +82,20 @@ FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 ITERS, WARMUP = 20, 3
 H2K, W2K = 1242, 2208          # 2K frame of a ZED-class camera
+HVGA, WVGA = 376, 672          # its VGA mode
 TPU_KERNEL = {
     "lowmaps": "primestereomatch_tpu/kernels/lowmaps_pallas.py:137",
-    "wta": "primestereomatch_tpu/kernels/wta_pallas.py:298",
+    # one CUDA kernel for the TPU's polyphase kernel and its generic-ratio one
+    "wta": "primestereomatch_tpu/kernels/wta_pallas.py:298 and :80",
+    "cvc_lowmaps": "primestereomatch_tpu/kernels/cvc_lowmaps_pallas.py:64",
+    "cvc_wta": "primestereomatch_tpu/kernels/cvc_wta_pallas.py:117 and :251",
     "wmf": "primestereomatch_tpu/kernels/wmf_pallas.py:69",
     "bt_cost": "primestereomatch_tpu/kernels/sgbm_pallas.py:383",
     "sgbm_scan": "primestereomatch_tpu/kernels/sgbm_pallas.py:83",
     "select": "primestereomatch_tpu/kernels/select_pallas.py:280",
     "speckle": "primestereomatch_tpu/kernels/speckle_pallas.py:51",
 }
-GIF_KERNELS = ("lowmaps", "wta", "wmf")
+GIF_KERNELS = ("lowmaps", "wta", "wmf", "cvc_lowmaps", "cvc_wta")
 SGBM_KERNELS = ("bt_cost", "sgbm_scan", "select", "speckle")
 # cv2-golden bounds (tests/test_sgbm_cv2_golden.py:58-104): within-1d on
 # jointly valid x >= 64 at least, interior validity mismatch at most
@@ -111,22 +127,53 @@ def bound(nbytes: float, ops: float, ops_per_s: float = FP32_FLOP_PER_S) -> tupl
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _chain_ops(n: int, k: int) -> int:
+    # per cost value: 3 guide products, 8 separable k-boxes (2k-1 each), 27
+    # for the solve
+    return n * (22 + 16 * k)
+
+
+def _wta_ops(B: int, D: int, H: int, W: int, w: int) -> int:
+    # per d >= 1, the separable lerp as the plain version computes it: each
+    # of the 4 maps row-lerped once per (output row, low-res column), 3 ops;
+    # then per output pixel 4 column lerps (3 each), 6 combine, 1 compare
+    return B * (D - 1) * (12 * H * w + 19 * H * W)
+
+
 def bound_lowmaps(p: torch.Tensor, k: int):
     B, D, h, w = p.shape
     n = B * D * h * w
-    # read p and the 12 stat planes once, write 4 maps; per value: 3 guide
-    # products, 8 separable k-boxes (2k-1 each), 27 for the solve
-    return bound(4 * (n + B * 12 * h * w + 4 * n), n * (22 + 16 * k))
+    # read p and the 12 stat planes once, write 4 maps
+    return bound(4 * (n + B * 12 * h * w + 4 * n), _chain_ops(n, k))
 
 
 def bound_wta(guide: torch.Tensor, maps: torch.Tensor):
     B, H, W, _ = guide.shape
     D, h, w = maps.shape[2:]
     nbytes = 4 * maps.numel() + 4 * guide.numel() + B * H * W + 8 * (H + W)
-    # per d >= 1, the separable lerp as the plain version computes it: each
-    # of the 4 maps row-lerped once per (output row, low-res column), 3 ops;
-    # then per output pixel 4 column lerps (3 each), 6 combine, 1 compare
-    return bound(nbytes, B * (D - 1) * (12 * H * w + 19 * H * W))
+    return bound(nbytes, _wta_ops(B, D, H, W, w))
+
+
+def bound_cvc_lowmaps(views: torch.Tensor, grds: torch.Tensor, stats: torch.Tensor, D: int,
+                      k: int):
+    B2, _, h, w = stats.shape
+    n = B2 * D * h * w
+    # read the views, gradients and stat planes once, write 4 maps; per cost
+    # value ~12 ops for the cost (4 sub, 4 abs, 2 add, 2 clamps or the blend)
+    # and the chain's
+    return bound(4 * (views.numel() + grds.numel() + stats.numel() + 4 * n),
+                 12 * n + _chain_ops(n, k))
+
+
+def bound_cvc_wta(views: torch.Tensor, grds: torch.Tensor, stats: torch.Tensor, D: int,
+                  k: int):
+    B2, H, W, _ = views.shape
+    h, w = stats.shape[-2:]
+    n = B2 * D * h * w
+    # read the views, gradients and stat planes once, write uint8 disparities;
+    # the operations of K4's function and of K2's
+    return bound(4 * (views.numel() + grds.numel() + stats.numel()) + B2 * H * W + 8 * (H + W),
+                 12 * n + _chain_ops(n, k) + _wta_ops(B2, D, H, W, w))
 
 
 def bound_wmf(disp: torch.Tensor, out: torch.Tensor, radius: int, n_bins: int):
@@ -171,12 +218,11 @@ def bound_sweep(m: torch.Tensor):
     return bound(2 * 9 * m.numel(), 2 * 7 * m.numel(), INT32_OPS_PER_S)
 
 
-def synthetic_2k(seed: int = 0):
-    """A textured 2208x1242 pair whose right view is the left one sampled at
-    x + d(x, y): d = 96 in a central rectangle, 48 elsewhere. Returns the
-    pair (float32 BGR in [0,1]) and the rectangle in right-view columns."""
+def synthetic_pair(H: int, W: int, seed: int, rect, d_fg: int, d_bg: int):
+    """A textured HxW pair whose right view is the left one sampled at
+    x + d(x, y): d = d_fg in `rect` (rows y0:y1, right-view columns x0:x1),
+    d_bg elsewhere. Returns the pair, float32 BGR in [0,1]."""
     rng = np.random.default_rng(seed)
-    H, W = H2K, W2K
     coarse = rng.random((H // 8 + 2, W // 8 + 2, 3)).astype(np.float32)
     yy = np.arange(H) / 8.0
     xx = np.arange(W) / 8.0
@@ -185,25 +231,46 @@ def synthetic_2k(seed: int = 0):
     tex = (coarse[y0][:, x0] * (1 - fy) * (1 - fx) + coarse[y0 + 1][:, x0] * fy * (1 - fx)
            + coarse[y0][:, x0 + 1] * (1 - fy) * fx + coarse[y0 + 1][:, x0 + 1] * fy * fx)
     left = np.clip(0.7 * tex + 0.3 * rng.random((H, W, 3)), 0, 1).astype(np.float32)
-    rect = (300, 900, 700, 1500)                       # rows y0:y1, right-view cols x0:x1
-    d = np.full((H, W), 48, np.int64)
-    d[rect[0]:rect[1], rect[2]:rect[3]] = 96
+    d = np.full((H, W), d_bg, np.int64)
+    d[rect[0]:rect[1], rect[2]:rect[3]] = d_fg
     src = np.arange(W)[None, :] + d
     right = np.where((src < W)[..., None],
                      left[np.arange(H)[:, None], np.minimum(src, W - 1)],
                      rng.random((H, W, 3)).astype(np.float32))
-    return left, np.ascontiguousarray(right, dtype=np.float32), rect
+    return left, np.ascontiguousarray(right, dtype=np.float32)
 
 
-def parity(name: str, cfg, left, right, dev, report):
-    """Each kernel against its plain version on the same CUDA tensors, and
-    the times of both (phases 3 and 5 for one shape)."""
-    g2, p2 = sampled_cost_volumes(torch.as_tensor(left, device=dev),
-                                  torch.as_tensor(right, device=dev), cfg)
-    k = cfg.fgf_low_radius
+def synthetic_2k(seed: int = 0):
+    """The 2208x1242 pair: d = 96 in a central rectangle, 48 elsewhere.
+    Returns the pair and the rectangle."""
+    rect = (300, 900, 700, 1500)
+    return (*synthetic_pair(H2K, W2K, seed, rect, 96, 48), rect)
+
+
+def time_rows(name: str, row: dict, timing: dict, plain_iters=(ITERS, WARMUP)) -> None:
+    """CUDA-event times of each kernel and its plain version, and its bound."""
+    for kname, (fk, fp, (b_ms, b_by)) in timing.items():
+        row[kname].update(ms=cuda_ms(fk), plain_ms=cuda_ms(fp, *plain_iters), bound_ms=b_ms,
+                          bound_by=b_by)
+        r = row[kname]
+        log(f"time {name} {kname}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.5f} ms ({b_by}), {b_ms / r['ms']:.1%} of bound")
+
+
+def parity(name: str, cfg, left, right, dev, report, with_wmf: bool = True):
+    """K1-K3 against their plain versions on the same CUDA tensors, and
+    the times of both (phases 3 and 5 for one shape). `with_wmf=False`
+    stops after K1 and K2 (the subsample=1 shape, where K3's inputs are
+    the Teddy shape's)."""
+    g2, grds = stacked_views(torch.as_tensor(left, device=dev)[None],
+                             torch.as_tensor(right, device=dev)[None], cfg)
+    H, W = g2.shape[1:3]
+    k, s = cfg.fgf_low_radius, cfg.subsample
+    p2 = sampled_cost_volumes(g2, grds, cfg.max_dis, (H // s, W // s), alpha=cfg.alpha,
+                              border_cost=cfg.border_cost, tau1=cfg.tau1, tau2=cfg.tau2)
+    del grds
     stats = guide_stats(g2, tuple(p2.shape[-2:]), k, cfg.gif_eps).contiguous()
     B, D, h, w = p2.shape
-    H, W = g2.shape[1:3]
     row = {}
 
     maps_k = K.low_maps(p2, stats, k)
@@ -225,23 +292,10 @@ def parity(name: str, cfg, left, right, dev, report):
     frac = float((diff > 0).float().mean())
     row["wta"] = {"max_abs_err": int(diff.max()), "mismatch": frac,
                   "n_differ": int((diff > 0).sum()), "n": diff.numel()}
-    log(f"parity {name} upsample_wta (B,H,W,D)={(B, H, W, D)}: mismatch={frac:.3e} "
+    log(f"parity {name} upsample_wta (B,H,W,D)={(B, H, W, D)} from {h}x{w}: mismatch={frac:.3e} "
         f"({row['wta']['n_differ']} px) max|diff|={row['wta']['max_abs_err']} (bound 2e-3)")
     if frac > 2e-3 or int(disp_k.min()) < 1:
         raise AssertionError(f"upsample_wta disagrees with its plain version at {name}")
-
-    g_u8 = _to_u8(g2).contiguous()
-    med_k = K.weighted_median(disp_p, g_u8, cfg.wmf_radius, D, cfg.wmf_sigma)
-    med_p = K.weighted_median_plain(disp_p, g_u8, cfg.wmf_radius, D, cfg.wmf_sigma)
-    diff = (med_k.int() - med_p.int()).abs()
-    frac = float((diff > 0).float().mean())
-    row["wmf"] = {"max_abs_err": int(diff.max()), "mismatch": frac,
-                  "n_differ": int((diff > 0).sum()), "n": diff.numel()}
-    log(f"parity {name} weighted_median (B,H,W) r={cfg.wmf_radius} bins={D}: "
-        f"mismatch={frac:.3e} ({row['wmf']['n_differ']} px) "
-        f"max|diff|={row['wmf']['max_abs_err']} (bounds 1e-3, 1)")
-    if frac > 1e-3 or int(diff.max()) > 1:
-        raise AssertionError(f"weighted_median disagrees with its plain version at {name}")
 
     timing = {
         "lowmaps": (lambda: K.low_maps(p2, stats, k),
@@ -249,17 +303,81 @@ def parity(name: str, cfg, left, right, dev, report):
         "wta": (lambda: K.upsample_wta(g2, maps_p),
                 lambda: K.upsample_wta_plain(g2, maps_p, d_chunk=d_chunk),
                 bound_wta(g2, maps_p)),
-        "wmf": (lambda: K.weighted_median(disp_p, g_u8, cfg.wmf_radius, D, cfg.wmf_sigma),
-                lambda: K.weighted_median_plain(disp_p, g_u8, cfg.wmf_radius, D,
-                                                cfg.wmf_sigma),
-                bound_wmf(disp_p, med_p, cfg.wmf_radius, D)),
     }
-    for kname, (fk, fp, (b_ms, b_by)) in timing.items():
-        row[kname].update(ms=cuda_ms(fk), plain_ms=cuda_ms(fp), bound_ms=b_ms,
-                          bound_by=b_by)
-        r = row[kname]
-        log(f"time {name} {kname}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.5f} ms ({b_by}), {b_ms / r['ms']:.1%} of bound")
+    if with_wmf:
+        g_u8 = _to_u8(g2).contiguous()
+        med_k = K.weighted_median(disp_p, g_u8, cfg.wmf_radius, D, cfg.wmf_sigma)
+        med_p = K.weighted_median_plain(disp_p, g_u8, cfg.wmf_radius, D, cfg.wmf_sigma)
+        diff = (med_k.int() - med_p.int()).abs()
+        frac = float((diff > 0).float().mean())
+        row["wmf"] = {"max_abs_err": int(diff.max()), "mismatch": frac,
+                      "n_differ": int((diff > 0).sum()), "n": diff.numel()}
+        log(f"parity {name} weighted_median (B,H,W) r={cfg.wmf_radius} bins={D}: "
+            f"mismatch={frac:.3e} ({row['wmf']['n_differ']} px) "
+            f"max|diff|={row['wmf']['max_abs_err']} (bounds 1e-3, 1)")
+        if frac > 1e-3 or int(diff.max()) > 1:
+            raise AssertionError(f"weighted_median disagrees with its plain version at {name}")
+        timing["wmf"] = (
+            lambda: K.weighted_median(disp_p, g_u8, cfg.wmf_radius, D, cfg.wmf_sigma),
+            lambda: K.weighted_median_plain(disp_p, g_u8, cfg.wmf_radius, D, cfg.wmf_sigma),
+            bound_wmf(disp_p, med_p, cfg.wmf_radius, D))
+    time_rows(name, row, timing)
+    report[name] = row
+
+
+def fused_parity(name: str, cfg, left, right, dev, report):
+    """K4 against its plain version (sampled cost, then K1's plain version)
+    and K10 against K4 -> K2 on the card and against its plain version, on
+    the same CUDA tensors, and the times (phases 3 and 5 for one shape)."""
+    views, grds = stacked_views(torch.as_tensor(left, device=dev)[None],
+                                torch.as_tensor(right, device=dev)[None], cfg)
+    B2, H, W, _ = views.shape
+    s, k, D = cfg.subsample, cfg.fgf_low_radius, cfg.max_dis
+    stats = guide_stats(views, (H // s, W // s), k, cfg.gif_eps).contiguous()
+    cost = dict(alpha=cfg.alpha, border_cost=cfg.border_cost, tau1=cfg.tau1, tau2=cfg.tau2)
+    d_chunk = 16 if D > 64 else None
+    row = {}
+
+    maps_k = K.cvc_low_maps(views, grds, stats, D, k, **cost)
+    maps_p = K.cvc_low_maps_plain(views, grds, stats, D, k, **cost)
+    err = (maps_k - maps_p).abs()
+    tol_ok = torch.allclose(maps_k, maps_p, atol=2e-4, rtol=1e-3)
+    row["cvc_lowmaps"] = {"max_abs_err": float(err.max()), "n_differ": int((err > 0).sum()),
+                          "n": maps_k.numel()}
+    log(f"parity {name} cvc_lowmaps views {(B2, H, W)} D={D} -> maps {tuple(maps_k.shape)} "
+        f"k={k}: max|diff|={row['cvc_lowmaps']['max_abs_err']:.3e} differing="
+        f"{row['cvc_lowmaps']['n_differ']}/{maps_k.numel()} (atol 2e-4, rtol 1e-3)")
+    if not tol_ok:
+        raise AssertionError(f"cvc_lowmaps disagrees with its plain version at {name}")
+    del maps_p, err
+
+    disp_k = K.cvc_wta(views, grds, stats, D, k, **cost)
+    disp_2 = K.upsample_wta(views, maps_k)
+    disp_p = K.cvc_wta_plain(views, grds, stats, D, k, **cost, d_chunk=d_chunk)
+    del maps_k
+    diff = (disp_k.int() - disp_p.int()).abs()
+    frac = float((diff > 0).float().mean())
+    frac_2 = float((disp_k != disp_2).float().mean())
+    row["cvc_wta"] = {"max_abs_err": int(diff.max()), "mismatch": frac,
+                      "mismatch_vs_k4_k2": frac_2, "n_differ": int((diff > 0).sum()),
+                      "n": diff.numel()}
+    log(f"parity {name} cvc_wta views {(B2, H, W)} D={D}: vs plain mismatch={frac:.3e} "
+        f"({row['cvc_wta']['n_differ']} px) max|diff|={row['cvc_wta']['max_abs_err']}; vs "
+        f"cvc_lowmaps -> upsample_wta on the card mismatch={frac_2:.3e} (bounds 2e-3)")
+    if max(frac, frac_2) > 2e-3 or int(disp_k.min()) < 1:
+        raise AssertionError(f"cvc_wta disagrees at {name}")
+    del disp_k, disp_2, disp_p, diff
+    torch.cuda.empty_cache()
+
+    timing = {
+        "cvc_lowmaps": (lambda: K.cvc_low_maps(views, grds, stats, D, k, **cost),
+                        lambda: K.cvc_low_maps_plain(views, grds, stats, D, k, **cost),
+                        bound_cvc_lowmaps(views, grds, stats, D, k)),
+        "cvc_wta": (lambda: K.cvc_wta(views, grds, stats, D, k, **cost),
+                    lambda: K.cvc_wta_plain(views, grds, stats, D, k, **cost, d_chunk=d_chunk),
+                    bound_cvc_wta(views, grds, stats, D, k)),
+    }
+    time_rows(name, row, timing, plain_iters=(3, 1) if D > 64 else (ITERS, WARMUP))
     report[name] = row
 
 
@@ -333,7 +451,7 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
     report[name] = row
 
 
-def frame_ms(run, iters: int = ITERS) -> float:
+def frame_ms(run, iters: int) -> float:
     """Host-clock ms per end-to-end frame of `run()` (device tensors in,
     synchronised)."""
     for _ in range(WARMUP):
@@ -374,8 +492,8 @@ def profile_frames(run, tags: dict, frames: int = 5) -> dict:
             "device_ms_by_kernel": per, "device_ops_per_frame": launches / frames}
 
 
-def end_to_end(label: str, run, tags: dict, note: str) -> dict:
-    ms = frame_ms(run)
+def end_to_end(label: str, run, tags: dict, note: str, iters: int) -> dict:
+    ms = frame_ms(run, iters)
     out = {"ms_per_frame": ms, "fps": 1e3 / ms, "profile": profile_frames(run, tags)}
     log(f"end to end {label}: {ms:.3f} ms/frame, {1e3 / ms:.2f} fps ({note})")
     prof = out["profile"]
@@ -431,55 +549,104 @@ def main() -> int:
 
     cfg = psm.GIFConfig()
     cfg2k = psm.GIFConfig(max_dis=256)
+    cfg2k_full = psm.GIFConfig(max_dis=256, tail_fusion="full")
+    cfg_s1 = psm.GIFConfig(subsample=1)
     scfg = psm.SGBMConfig()
     scfg2k = psm.SGBMConfig(num_disparities=256)
     teddy = load_dataset("Teddy")
     left2k, right2k, rect = synthetic_2k(0)
     left2k_u8, right2k_u8 = (np.clip(np.rint(a * 255), 0, 255).astype(np.uint8)
                              for a in (left2k, right2k))
+    left_vga, right_vga = synthetic_pair(HVGA, WVGA, 1, (90, 270, 210, 450), 24, 12)
     report: dict = {}
     parity("teddy", cfg, teddy.left_f32, teddy.right_f32, dev, report)
     parity("2k", cfg2k, left2k, right2k, dev, report)
+    torch.cuda.empty_cache()
+    parity("teddy_s1", cfg_s1, teddy.left_f32, teddy.right_f32, dev, report, with_wmf=False)
+    torch.cuda.empty_cache()
+    fused_report: dict = {}
+    fused_parity("vga", cfg, left_vga, right_vga, dev, fused_report)
+    fused_parity("2k", cfg2k, left2k, right2k, dev, fused_report)
     torch.cuda.empty_cache()
     sgbm_report: dict = {}
     sgbm_parity("teddy", scfg, teddy.left_bgr, teddy.right_bgr, dev, sgbm_report)
     sgbm_parity("2k", scfg2k, left2k_u8, right2k_u8, dev, sgbm_report)
     torch.cuda.empty_cache()
 
-    # ---- GIF main path: counts at 0 just before, read just after ---------
+    # ---- GIF main paths: counts at 0 just before each, read just after ---
     samples = {n: (teddy if n == "Teddy" else load_dataset(n)) for n in GOLDEN_NONOCC}
     frames = {n: (torch.as_tensor(s.left_f32, device=dev),
                   torch.as_tensor(s.right_f32, device=dev)) for n, s in samples.items()}
     frames["2k"] = (torch.as_tensor(left2k, device=dev), torch.as_tensor(right2k, device=dev))
-    torch.cuda.synchronize()
-    K.reset_launches()
-    outs, per_frame = {}, {}
-    for n, (l_t, r_t) in frames.items():
-        before = dict(_build.LAUNCHES)
-        outs[n] = psm.stereo_gif_forward(l_t, r_t, cfg2k if n == "2k" else cfg, device=dev)
-        per_frame[n] = {k: _build.LAUNCHES[k] - before[k] for k in GIF_KERNELS}
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    log(f"GIF main path launches: {launches}; per frame: {per_frame}")
-    if min(launches[k] for k in GIF_KERNELS) < 1:
-        raise AssertionError(f"a kernel of the GIF path never launched: {launches}")
+    # four Teddy-size frames: Teddy, Cones, Teddy, Cones
+    batch4 = tuple(torch.stack([frames[n][v] for n in ("Teddy", "Cones") * 2]) for v in (0, 1))
+    path_launches: dict = {}
+
+    def drive(label: str, expect: tuple, run):
+        """One main path: exactly the kernels `expect` must launch in it."""
+        torch.cuda.synchronize()
+        K.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        log(f"GIF main path {label}: launches {counts}")
+        if set(counts) != set(expect):
+            raise AssertionError(f"{label} launched {counts}, expected exactly {expect}")
+        path_launches[label] = counts
+        return out
+
+    k123 = ("lowmaps", "wta", "wmf")
+    outs = {n: drive(n, k123, lambda n=n: psm.stereo_gif_forward(*frames[n], cfg, device=dev))
+            for n in samples}
+    outs["2k"] = drive("2k", ("cvc_lowmaps", "wta", "wmf"),
+                       lambda: psm.stereo_gif_forward(*frames["2k"], cfg2k, device=dev))
+    outs["2k_full"] = drive("2k_full", ("cvc_wta", "wmf"),
+                            lambda: psm.stereo_gif_forward(*frames["2k"], cfg2k_full, device=dev))
+    outs["teddy_s1"] = drive("teddy_s1", k123,
+                             lambda: psm.stereo_gif_forward(*frames["Teddy"], cfg_s1, device=dev))
+    outs["batch4"] = drive("batch4", k123,
+                           lambda: psm.stereo_gif_forward_batch(*batch4, cfg, device=dev))
+    launches = {k: sum(c.get(k, 0) for c in path_launches.values()) for k in GIF_KERNELS}
+    log(f"GIF main paths, launches summed: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the GIF paths never launched: {launches}")
+
+    def bp_nonocc(name: str, key: str) -> float:
+        s = samples[name]
+        ld, rd = (t.cpu().numpy() for t in outs[key])
+        if ld.shape != s.gt.shape or int(max(ld.max(), rd.max())) >= cfg.max_dis or int(
+                min(ld.min(), rd.min())) < 1:
+            raise AssertionError(f"{key} disparities out of shape or range")
+        return bad_pixel_metrics(ld, s.gt, s.scale_factor, cfg.max_dis,
+                                 mask=s.mask_nonocc).percent_bad_pixels
 
     bp = {}
-    for n, s in samples.items():
-        ld, rd = (t.cpu().numpy() for t in outs[n])
-        res = bad_pixel_metrics(ld, s.gt, s.scale_factor, cfg.max_dis, mask=s.mask_nonocc)
-        bp[n] = res.percent_bad_pixels
+    for n in samples:
+        bp[n] = bp_nonocc(n, n)
         log(f"{n}: %BP(nonocc) {bp[n]:.3f} (reference {GOLDEN_NONOCC[n]}, +-0.3)")
-        if abs(bp[n] - GOLDEN_NONOCC[n]) > 0.3 or ld.shape != s.gt.shape:
+        if abs(bp[n] - GOLDEN_NONOCC[n]) > 0.3:
             raise AssertionError(f"{n} %BP {bp[n]} outside the golden band")
-        if int(rd.max()) >= cfg.max_dis or int(ld.min()) < 1:
-            raise AssertionError(f"{n} disparities out of range")
+    bp["Teddy_s1"] = bp_nonocc("Teddy", "teddy_s1")
+    log(f"Teddy at subsample=1: %BP(nonocc) {bp['Teddy_s1']:.3f}, disparities in [1, 64)")
 
-    ld, rd = (t.cpu().numpy() for t in outs["2k"])
-    if ld.shape != (H2K, W2K) or ld.dtype != np.uint8 or min(ld.min(), rd.min()) < 1:
-        raise AssertionError(f"2K output {ld.shape} {ld.dtype} min {ld.min()}")
-    med2k = check_medians_2k(ld.astype(np.float64), rd.astype(np.float64), rect)
-    log(f"2k (1242x2208, max_dis=256): interior medians {med2k} match the field")
+    med2k = {}
+    for key in ("2k", "2k_full"):
+        ld, rd = (t.cpu().numpy() for t in outs[key])
+        if ld.shape != (H2K, W2K) or ld.dtype != np.uint8 or min(ld.min(), rd.min()) < 1:
+            raise AssertionError(f"{key} output {ld.shape} {ld.dtype} min {ld.min()}")
+        med2k[key] = check_medians_2k(ld.astype(np.float64), rd.astype(np.float64), rect)
+        log(f"{key} (1242x2208, max_dis=256): interior medians {med2k[key]} match the field")
+    full_vs_maps = max(float((a != b).float().mean())
+                       for a, b in zip(outs["2k_full"], outs["2k"]))
+    log(f"2k tail_fusion='full' vs 'maps' after JointWMF: mismatch {full_vs_maps:.3e} "
+        f"(bound 2e-3)")
+    if full_vs_maps > 2e-3:
+        raise AssertionError("the full-fusion 2K frame disagrees with the maps path")
+    for v in (0, 1):
+        for i, n in enumerate(("Teddy", "Cones") * 2):
+            if not torch.equal(outs["batch4"][v][i], outs[n][v]):
+                raise AssertionError(f"batch frame {i} view {v} differs from the single {n} frame")
+    log("batch of 4 Teddy-size frames: every frame bitwise equal to its single-frame output")
     del outs
     torch.cuda.empty_cache()
 
@@ -501,7 +668,7 @@ def main() -> int:
         sper_frame[n]["speckle_sweeps"] = sper_frame[n]["speckle"] // 2
         sper_frame[n]["host_syncs"] = sper_frame[n]["speckle"] // 4
     torch.cuda.synchronize()
-    slaunches = dict(_build.LAUNCHES)
+    slaunches = {k: _build.LAUNCHES[k] for k in SGBM_KERNELS}
     log(f"SGBM main path launches: {slaunches}; per frame: {sper_frame}")
     if min(slaunches[k] for k in SGBM_KERNELS) < 1:
         raise AssertionError(f"a kernel of the SGBM path never launched: {slaunches}")
@@ -550,53 +717,88 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     e2e = {}
-    gif_tags = {"lowmaps_kernel": "lowmaps", "upsample_wta_kernel": "wta",
+    # the longer kernel names first: "lowmaps_kernel" is part of "cvc_lowmaps_kernel"
+    gif_tags = {"cvc_lowmaps_kernel": "cvc_lowmaps", "cvc_wta_kernel": "cvc_wta",
+                "lowmaps_kernel": "lowmaps", "upsample_wta_kernel": "wta",
                 "joint_wmf_kernel": "wmf"}
     sgbm_tags = {"bt_row_kernel": "bt_cost", "bt_col_kernel": "bt_cost",
                  "sgm_scan_kernel": "sgbm_scan", "select_kernel": "select",
                  "segmin_": "speckle"}
-    for n, c, sc in (("teddy", cfg, scfg), ("2k", cfg2k, scfg2k)):
-        key = "Teddy" if n == "teddy" else "2k"
-        l_t, r_t = frames[key]
-        e2e[n] = end_to_end(n, lambda: psm.stereo_gif_forward(l_t, r_t, c, device=dev),
-                            gif_tags, "both views + JointWMF")
-        l_u, r_u = sframes[key]
+    gif_runs = {
+        "teddy": (frames["Teddy"], cfg, ITERS, "both views + JointWMF"),
+        "2k": (frames["2k"], cfg2k, 10, "K4 -> K2 -> K3"),
+        "2k_full": (frames["2k"], cfg2k_full, 10, "tail_fusion='full': K10 -> K3"),
+        "teddy_s1": (frames["Teddy"], cfg_s1, ITERS, "subsample=1: CVC -> K1 (k=17) -> K2 -> K3"),
+    }
+    for n, (pair, c, iters, note) in gif_runs.items():
+        e2e[n] = end_to_end(n, lambda: psm.stereo_gif_forward(*pair, c, device=dev),
+                            gif_tags, note, iters)
+    e2e["batch4"] = end_to_end(
+        "batch4", lambda: psm.stereo_gif_forward_batch(*batch4, cfg, device=dev), gif_tags,
+        "one call for 4 Teddy-size frames: divide by 4 for a frame", ITERS)
+    for n, sc in (("teddy", scfg), ("2k", scfg2k)):
+        l_u, r_u = sframes["Teddy" if n == "teddy" else "2k"]
         e2e[f"sgbm_{n}"] = end_to_end(
             f"SGBM {n}", lambda: psm.stereo_sgbm_forward(l_u, r_u, sc, device=dev),
-            sgbm_tags, f"{sc.mode}, D={sc.num_disparities}, speckle filter")
+            sgbm_tags, f"{sc.mode}, D={sc.num_disparities}, speckle filter", ITERS)
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    torch.cuda.reset_peak_memory_stats()
-    psm.stereo_sgbm_forward(*sframes["2k"], scfg2k, device=dev)
-    torch.cuda.synchronize()
-    peak_sgbm2k = torch.cuda.max_memory_allocated() / 2**30
-    log(f"peak device memory: {peak:.2f} GiB over the run, {peak_sgbm2k:.2f} GiB for one "
-        f"SGBM 2K frame")
+    peak = {"run": torch.cuda.max_memory_allocated() / 2**30}
+
+    def peak_gib(run) -> float:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    peak["gif_2k_maps"] = peak_gib(lambda: psm.stereo_gif_forward(*frames["2k"], cfg2k,
+                                                                  device=dev))
+    peak["gif_2k_full"] = peak_gib(lambda: psm.stereo_gif_forward(*frames["2k"], cfg2k_full,
+                                                                  device=dev))
+    peak["sgbm_2k"] = peak_gib(lambda: psm.stereo_sgbm_forward(*sframes["2k"], scfg2k,
+                                                               device=dev))
+    log(f"peak device memory (GiB, the resident input frames included): over the run "
+        f"{peak['run']:.2f}; one GIF 2K frame on the maps path {peak['gif_2k_maps']:.2f}, with "
+        f"tail_fusion='full' {peak['gif_2k_full']:.2f}; one SGBM 2K frame {peak['sgbm_2k']:.2f}")
 
     rows = []
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     for kname in GIF_KERNELS + SGBM_KERNELS:
-        rep = report if kname in GIF_KERNELS else sgbm_report
-        n_launch = launches[kname] if kname in GIF_KERNELS else slaunches[kname]
-        t, k2 = rep["teddy"][kname], rep["2k"][kname]
-        rows.append({
+        if kname in ("cvc_lowmaps", "cvc_wta"):
+            rep, first, at = fused_report, "vga", "zed-vga 376x672 D=64"
+        else:
+            rep, first, at = (report if kname in GIF_KERNELS else sgbm_report), "teddy", \
+                "teddy 375x450 D=64"
+        t, k2 = rep[first][kname], rep["2k"][kname]
+        row = {
             "name": kname, "route": "cuda",
             "source": f"primestereomatch_torch/csrc/{kname}.cu",
-            "replaces": TPU_KERNEL[kname], "launches": n_launch,
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
-            "at": "teddy 375x450 D=64",
-            "at_2k": {key: k2[key] for key in
-                      ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-            "mismatch": {"teddy": t.get("mismatch", t["n_differ"] / t["n"]),
+            "replaces": TPU_KERNEL[kname],
+            "launches": launches[kname] if kname in GIF_KERNELS else slaunches[kname],
+            **{key: t[key] for key in timed}, "library_ms": None, "at": at,
+            "at_2k": {key: k2[key] for key in timed},
+            "mismatch": {first: t.get("mismatch", t["n_differ"] / t["n"]),
                          "2k": k2.get("mismatch", k2["n_differ"] / k2["n"])},
-        })
+        }
+        if kname in ("lowmaps", "wta"):
+            # Teddy at subsample=1: a 17x17 box, and the upsampling ratio 1 that
+            # the TPU serves with its generic-ratio kernel
+            g = report["teddy_s1"][kname]
+            row["at_generic"] = {**{key: g[key] for key in timed},
+                                 "mismatch": g.get("mismatch", g["n_differ"] / g["n"]),
+                                 "at": "teddy 375x450 D=64, subsample=1"}
+        if kname in GIF_KERNELS:
+            row["launches_by_path"] = {p: c.get(kname, 0) for p, c in path_launches.items()}
+        rows.append(row)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "kernels": rows, "parity": report, "sgbm_parity": sgbm_report,
-        "bp_nonocc": bp, "per_frame_launches": per_frame, "e2e": e2e, "medians_2k": med2k,
+        "fused_parity": fused_report, "bp_nonocc": bp, "path_launches": path_launches,
+        "e2e": e2e, "medians_2k": med2k, "full_vs_maps_2k": full_vs_maps,
         "sgbm_quality": sgbm_q, "sgbm_per_frame": sper_frame, "sgbm_medians_2k": smed2k,
-        "peak_gib": peak, "peak_gib_sgbm_2k": peak_sgbm2k,
+        "peak_gib": peak,
         "build_logs": _build.BUILD_LOGS, "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -20,6 +20,7 @@ from primestereomatch_torch.models import (  # noqa: F401
     StereoSGBM,
     sgbm_display_u8,
     stereo_gif_forward,
+    stereo_gif_forward_batch,
     stereo_sgbm_forward,
 )
 

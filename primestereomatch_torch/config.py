@@ -10,7 +10,8 @@ carry implementation selectors that choose between TPU implementations of
 one function (Pallas kernel or XLA); the port has one implementation, so
 it has no such fields. The two converters still check each selector
 against the values the JAX package allows (an unknown value raises), then
-drop it.
+drop it. `tail_fusion` is not such a selector: it chooses what a frame
+costs in device memory, and the port keeps it.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 _CHOICES = {
+    "tail_fusion": ("maps", "full"),
     "cvc_dtype": ("f32", "u8"),
     "wmf_mode": ("exact", "table"),
 }
@@ -32,7 +34,6 @@ _NOT_PORTED = {
 # the JAX configs' TPU implementation selectors and their allowed values;
 # `from_jax_*` validate and drop them
 _JAX_GIF_SELECTORS = {
-    "tail_fusion": ("maps", "full"),
     "cvc_impl": ("auto", "xla", "fused"),
     "wta_impl": ("auto", "xla", "pallas"),
     "wmf_impl": ("auto", "jnp", "pallas"),
@@ -67,6 +68,12 @@ class GIFConfig:
     wmf_n_feat: int = 256
     wmf_mode: str = "exact"
     cvc_dtype: str = "f32"
+    # 'maps': the coefficient maps (4, D, h, w) per view go through device
+    # memory between the low-maps and the WTA kernel. 'full': at
+    # exact-stride, phase-periodic geometries (ops/geometry.py) cost, chain
+    # and WTA run in one kernel and neither the cost volume nor the maps
+    # exist in device memory; other geometries take the maps path.
+    tail_fusion: str = "maps"    # maps | full
     sig_clr: float = 0.1
     sig_dis: float = 9.0
     pp_toolchain: bool = False
@@ -169,8 +176,9 @@ def _from_jax(cls, fields: dict, selectors: dict):
 
 def from_jax_config(fields: dict) -> GIFConfig:
     """Build the port's GIFConfig from `dataclasses.asdict()` of the JAX
-    package's GIFConfig. The TPU selectors and `wta_d_chunk` are checked
-    and dropped; other keys this config does not know raise."""
+    package's GIFConfig. `tail_fusion` comes across; the TPU selectors and
+    `wta_d_chunk` are checked and dropped; other keys this config does not
+    know raise."""
     return _from_jax(GIFConfig, fields, _JAX_GIF_SELECTORS)
 
 

@@ -2,11 +2,13 @@
 // argmin over disparities d >= 1, to uint8.
 //
 // Replaces primestereomatch_tpu/kernels/wta_pallas.py::_wta_kernel_poly
-// (launcher _wta_poly_run). The TPU kernel's banded row matmul and
-// polyphase column lerp are layout choices for its matrix unit; here the
-// OpenCV INTER_LINEAR tables (row/column source index and fraction,
-// computed on the host in float64) serve every ratio, quasi (Teddy
-// 112 -> 450) and exact (2K 552 -> 2208) alike.
+// (launcher _wta_poly_run) and ::_wta_kernel, the generic-ratio kernel the
+// TPU falls to where its polyphase layout does not apply. The TPU kernels'
+// banded matmuls and polyphase column lerp are layout choices for its
+// matrix unit; here the OpenCV INTER_LINEAR tables (row/column source index
+// and fraction, computed on the host in float64) serve every ratio: quasi
+// (Teddy 112 -> 450), exact (2K 552 -> 2208), below 2x (48 -> 90) and 1
+// (subsample=1, where the maps are full resolution) alike.
 //
 // What bounds it: the function needs each map row-lerped once per (output
 // row, low-res column) and column-lerped per output pixel, ~22 flops per

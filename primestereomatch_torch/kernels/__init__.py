@@ -1,7 +1,10 @@
 """Hand-written CUDA kernels of the main paths, each beside its plain
 PyTorch version. Nothing is built or loaded at import time.
 
-STEREO_GIF: K1 low-maps, K2 upsample+WTA, K3 JointWMF.
+STEREO_GIF: K1 low-maps, K2 upsample+WTA (every ratio: it is the TPU's
+polyphase kernel and its generic-ratio kernel K5 in one), K3 JointWMF, K4
+cost + low-maps (exact-stride geometries), K10 cost + chain + WTA in one
+kernel (`tail_fusion='full'`).
 STEREO_SGBM: K6 BT cost, K7 SGM scans, K8 selection, K9 speckle sweep.
 """
 
@@ -9,6 +12,14 @@ from primestereomatch_torch.kernels._build import (  # noqa: F401
     LAUNCHES,
     build,
     reset_launches,
+)
+from primestereomatch_torch.kernels.cvc_lowmaps import (  # noqa: F401
+    cvc_low_maps,
+    cvc_low_maps_plain,
+)
+from primestereomatch_torch.kernels.cvc_wta import (  # noqa: F401
+    cvc_wta,
+    cvc_wta_plain,
 )
 from primestereomatch_torch.kernels.lowmaps import (  # noqa: F401
     fgf_low_maps_batched,

@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) into its own shared library, loaded with ctypes. The
 build runs at first use, from the sources in the package only, into
 `build/torch_kernels/` beside the package; a library's file name carries
-a hash of its source and flags, so an edited source is rebuilt. `build()`
-starts one `nvcc` per source, all at once.
+a hash of its source, the shared headers (`csrc/*.cuh`) and the flags, so
+an edited source or header is rebuilt. `build()` starts one `nvcc` per
+source, all at once.
 
 `-fmad=false` keeps every multiply and add separately rounded, so the
 kernels follow their plain PyTorch versions' arithmetic step for step;
@@ -41,6 +42,10 @@ _ARGTYPES = {
     "lowmaps": ("psm_lowmaps", [_VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]),
     "wta": ("psm_upsample_wta",
             [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP]),
+    "cvc_lowmaps": ("psm_cvc_lowmaps",
+                    [_VP] * 6 + [_I] * 7 + [_F] * 6 + [_VP]),
+    "cvc_wta": ("psm_cvc_wta",
+                [_VP] * 10 + [_I] * 7 + [_F] + [_I] * 2 + [_F] * 5 + [_VP]),
     "wmf": ("psm_joint_wmf", [_VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]),
     "bt_cost": ("psm_bt_cost", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP]),
     "sgbm_scan": ("psm_sgm_scan",
@@ -73,7 +78,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{digest}.so"
 
 

@@ -1,12 +1,14 @@
 """K2: bilinear upsample of the maps + guide combine + first-minimum WTA
 over d >= 1 (CUDA, csrc/wta.cu).
 
-Replaces primestereomatch_tpu/kernels/wta_pallas.py::_wta_kernel_poly.
-Bound on the H100 about equally by reading the maps and by the lerp and
-combine arithmetic (bytes at Teddy's shape, operations at 2K); one thread
-per output pixel folds the argmin over d, so
-the filtered full-resolution volume never exists. The OpenCV INTER_LINEAR
-tables serve every column ratio, so the TPU's quasi/exact polyphase modes
+Replaces primestereomatch_tpu/kernels/wta_pallas.py::_wta_kernel_poly and
+::_wta_kernel (the TPU's generic kernel for the column ratios its polyphase
+layout rejects: below 2, above 8, or 1 at subsample=1). Bound on the H100
+about equally by reading the maps and by the lerp and combine arithmetic
+(bytes at Teddy's shape, operations at 2K); one thread per output pixel
+folds the argmin over d, so the filtered full-resolution volume never
+exists. The OpenCV INTER_LINEAR tables serve every column ratio, so the
+TPU's quasi/exact polyphase modes and its banded-matmul generic kernel
 collapse into this one kernel.
 """
 

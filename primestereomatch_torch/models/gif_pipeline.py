@@ -1,5 +1,5 @@
 """STEREO_GIF end-to-end pipeline on PyTorch (port of the JAX package's
-models/gif_pipeline.py::stereo_gif_forward with `GIFConfig()` semantics).
+models/gif_pipeline.py::stereo_gif_forward and ::stereo_gif_forward_batch).
 
 Stage map (reference call stack, src/StereoMatch.cpp:207-242 -> src/DispEst.cpp):
 
@@ -8,9 +8,18 @@ Stage map (reference call stack, src/StereoMatch.cpp:207-242 -> src/DispEst.cpp)
   WTA  upsample + guide combine + argmin  (K2)    kernels/wta.py
   PP   joint weighted median              (K3)    kernels/wmf.py
 
-The two views fold into one launch per kernel. On CUDA tensors every
-stage of K1-K3 is a hand-written kernel; on the CPU (device="cpu", as the
-tests run) the wrappers take their plain PyTorch versions.
+The geometry picks the tail (ops/geometry.py), as in the JAX package:
+
+  exact-stride columns (2K, HD720, ZED)   K4 (CVC inside the chain) -> K2
+  ... and `tail_fusion='full'`            K10 (CVC + chain + WTA in one kernel)
+  any other (Middlebury, subsample=1)     CVC in plain torch -> K1 -> K2
+
+The views of all frames fold into one launch per kernel, the B left views
+first and then the B right ones. On CUDA tensors every kernel stage is a
+hand-written kernel; on the CPU (device="cpu", as the tests run) the
+wrappers take their plain PyTorch versions. The Sobel gradients and the
+guide statistics are plain torch on both, as the JAX package computes them
+outside its kernels.
 """
 
 from __future__ import annotations
@@ -20,13 +29,16 @@ import torch
 
 from primestereomatch_torch.config import GIFConfig
 from primestereomatch_torch.kernels import (
-    fgf_low_maps_batched,
+    cvc_low_maps,
+    cvc_wta,
+    low_maps,
     upsample_wta,
     weighted_median,
 )
 from primestereomatch_torch.ops.color import bgr_to_gray_refquirk, sobel_x_k1
-from primestereomatch_torch.ops.cost_volume import build_cost_volumes_sampled
-from primestereomatch_torch.ops.resize import nearest_table
+from primestereomatch_torch.ops.cost_volume import sampled_cost_volumes
+from primestereomatch_torch.ops.geometry import fused_cvc_applies, full_fusion_applies
+from primestereomatch_torch.ops.guided_filter import guide_stats
 from primestereomatch_torch.utils.device import resolve_device
 
 
@@ -45,25 +57,41 @@ def _as_image(x, dev: torch.device) -> torch.Tensor:
     return t.to(device=dev, dtype=torch.float32).contiguous()
 
 
-def sampled_cost_volumes(l_img: torch.Tensor, r_img: torch.Tensor,
-                         cfg: GIFConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """CVC at the FGF's nearest-downsample grid, the cost only at the
-    sampled pixels. Returns the stacked views (2, H, W, 3) and their cost
-    volumes (2, D, H//s, W//s)."""
-    H, W, _ = l_img.shape
-    s = cfg.subsample
-    l_grd = sobel_x_k1(bgr_to_gray_refquirk(l_img))
-    r_grd = sobel_x_k1(bgr_to_gray_refquirk(r_img))
+def stacked_views(l_imgs: torch.Tensor, r_imgs: torch.Tensor,
+                  cfg: GIFConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, W, 3) left and right frames -> the stacked views (2B, H, W, 3),
+    lefts first, and their Sobel-x gradients (2B, H, W)."""
+    views = torch.cat([l_imgs, r_imgs])
+    grds = sobel_x_k1(bgr_to_gray_refquirk(views))
     if cfg.grad_offset:   # OpenCL-variant +0.5 (src/CVC_cl.cpp:108-111)
-        l_grd = l_grd + cfg.grad_offset
-        r_grd = r_grd + cfg.grad_offset
-    lcv, rcv = build_cost_volumes_sampled(
-        l_img, r_img, l_grd, r_grd, cfg.max_dis,
-        nearest_table(H, H // s, l_img.device), nearest_table(W, W // s, l_img.device),
-        alpha=cfg.alpha, border_cost=cfg.border_cost,
-        tau1=cfg.tau1, tau2=cfg.tau2,
-    )
-    return torch.stack([l_img, r_img]), torch.stack([lcv, rcv])
+        grds = grds + cfg.grad_offset
+    return views, grds.contiguous()
+
+
+def _forward_views(l_imgs: torch.Tensor, r_imgs: torch.Tensor, cfg: GIFConfig,
+                   run_postprocess: bool) -> torch.Tensor:
+    """(B, H, W, 3) pairs on one device -> (2B, H, W) uint8, lefts first."""
+    H, W = l_imgs.shape[1:3]
+    s, k, D = cfg.subsample, cfg.fgf_low_radius, cfg.max_dis
+    views, grds = stacked_views(l_imgs, r_imgs, cfg)
+    stats = guide_stats(views, (H // s, W // s), k, cfg.gif_eps).contiguous()
+    cost = dict(alpha=cfg.alpha, border_cost=cfg.border_cost, tau1=cfg.tau1, tau2=cfg.tau2)
+
+    if cfg.tail_fusion == "full" and full_fusion_applies(W, D, s):
+        disp = cvc_wta(views, grds, stats, D, k, **cost)                      # K10
+    else:
+        if fused_cvc_applies(W, D, s):
+            maps = cvc_low_maps(views, grds, stats, D, k, **cost)             # K4
+        else:
+            p = sampled_cost_volumes(views, grds, D, (H // s, W // s), **cost)
+            maps = low_maps(p, stats, k)                                      # K1
+        disp = upsample_wta(views, maps)                                      # K2
+
+    if run_postprocess:
+        disp = weighted_median(                                               # K3
+            disp, _to_u8(views), radius=cfg.wmf_radius, n_bins=D, sigma=cfg.wmf_sigma,
+        )
+    return disp
 
 
 def stereo_gif_forward(
@@ -84,21 +112,38 @@ def stereo_gif_forward(
             f"expected matching (H, W, 3) images, got {tuple(l_img.shape)} "
             f"vs {tuple(r_img.shape)}"
         )
-    g2, p2 = sampled_cost_volumes(l_img, r_img, cfg)
+    disp = _forward_views(l_img[None], r_img[None], cfg, run_postprocess)
+    return disp[0], disp[1]
 
-    # --- CVF (K1) + upsample/WTA (K2), both views in one launch each -------
-    maps = fgf_low_maps_batched(
-        g2, p2, radius=cfg.gif_radius, eps=cfg.gif_eps, subsample=cfg.subsample,
-    )
-    d2 = upsample_wta(g2, maps)
 
-    # --- PP: JointWMF (K3) --------------------------------------------------
-    if run_postprocess:
-        d2 = weighted_median(
-            d2, _to_u8(g2), radius=cfg.wmf_radius, n_bins=cfg.max_dis,
-            sigma=cfg.wmf_sigma,
+def stereo_gif_forward_batch(
+    l_imgs,                        # (B, H, W, 3) float in [0,1], BGR order
+    r_imgs,
+    cfg: GIFConfig = GIFConfig(),
+    run_postprocess: bool = True,
+    *,
+    device: str | torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """STEREO_GIF over a batch of frames: returns two (B, H, W) uint8
+    tensors on `device`. All 2B views share one launch per kernel; each
+    frame's result is bitwise equal to `stereo_gif_forward` of that frame."""
+    if cfg.pp_toolchain or cfg.wmf_mode != "exact":
+        raise ValueError(
+            "stereo_gif_forward_batch supports the default exact-WMF path only; "
+            "run pp_toolchain/table-mode frames through stereo_gif_forward"
         )
-    return d2[0], d2[1]
+    dev = resolve_device(device)
+    l_imgs = _as_image(l_imgs, dev)
+    r_imgs = _as_image(r_imgs, dev)
+    if (l_imgs.shape != r_imgs.shape or l_imgs.dim() != 4 or l_imgs.shape[-1] != 3
+            or l_imgs.shape[0] < 1):
+        raise ValueError(
+            f"expected matching (B, H, W, 3) batches, got {tuple(l_imgs.shape)} "
+            f"vs {tuple(r_imgs.shape)}"
+        )
+    B = l_imgs.shape[0]
+    disp = _forward_views(l_imgs, r_imgs, cfg, run_postprocess)
+    return disp[:B], disp[B:]
 
 
 class StereoGIF(torch.nn.Module):

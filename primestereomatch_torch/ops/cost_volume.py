@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from primestereomatch_torch.ops.resize import nearest_table
+
 _D_CHUNK = 32  # disparities gathered at once; bounds the (D, h, w, 3) temporaries
 
 
@@ -85,3 +87,35 @@ def build_cost_volumes_sampled(
         cr = pcost(r_s[None], lb, rg_s[None], lgb)
         r_parts.append(torch.where(xs < W - dt, cr, r_border[None]))
     return torch.cat(l_parts), torch.cat(r_parts)
+
+
+def sampled_cost_volumes(
+    views: torch.Tensor,     # (2B, H, W, 3): the B left views, then the B right ones
+    grds: torch.Tensor,      # (2B, H, W) their Sobel-x gradients
+    max_dis: int,
+    low_hw: tuple[int, int],
+    alpha: float = 0.9,
+    border_cost: float = 1.0,
+    tau1: float | None = None,
+    tau2: float | None = None,
+) -> torch.Tensor:
+    """The stacked views' cost volumes at the FGF's nearest-downsample
+    grid: (2B, D, h, w), view v < B matched against view v + B and back.
+    The cost is row-local, so the B pairs fold into the row axis and one
+    gather-based construction serves them all, bitwise equal to pair by
+    pair."""
+    B2, H, W, _ = views.shape
+    B = B2 // 2
+    h, w = low_hw
+    dev = views.device
+    yi = nearest_table(H, h, dev)
+    yi_b = (yi[None, :] + H * torch.arange(B, device=dev)[:, None]).reshape(-1)
+    lcv, rcv = build_cost_volumes_sampled(
+        views[:B].reshape(B * H, W, 3), views[B:].reshape(B * H, W, 3),
+        grds[:B].reshape(B * H, W), grds[B:].reshape(B * H, W),
+        max_dis, yi_b, nearest_table(W, w, dev),
+        alpha=alpha, border_cost=border_cost, tau1=tau1, tau2=tau2,
+    )
+    return torch.cat([
+        cv.reshape(max_dis, B, h, w).movedim(1, 0) for cv in (lcv, rcv)
+    ])

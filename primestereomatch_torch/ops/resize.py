@@ -41,10 +41,11 @@ def linear_coeffs(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
     return sx, f.astype(np.float32)
 
 
-def nearest_table(src: int, dst: int, device) -> torch.Tensor:
-    """`nearest_indices` as an int64 tensor on `device`, uploaded once."""
+def nearest_table(src: int, dst: int, device,
+                  index_dtype: torch.dtype = torch.long) -> torch.Tensor:
+    """`nearest_indices` as an index tensor on `device`, uploaded once."""
     return device_table(("nearest", src, dst), lambda: nearest_indices(src, dst),
-                        device, torch.long)
+                        device, index_dtype)
 
 
 def linear_tables(src: int, dst: int, device,

@@ -10,7 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from primestereomatch_torch import GIFConfig, kernels as K, stereo_gif_forward
+from primestereomatch_torch import (
+    GIFConfig,
+    kernels as K,
+    stereo_gif_forward,
+    stereo_gif_forward_batch,
+)
 from primestereomatch_torch.ops.guided_filter import guide_stats
 
 pytestmark = pytest.mark.cuda
@@ -71,11 +76,106 @@ def test_forward_on_card_matches_cpu(dev):
     cfg = GIFConfig(max_dis=16, med_sz=7)
     K.reset_launches()
     got = stereo_gif_forward(left, right, cfg)
-    assert all(K.LAUNCHES[n] == 1 for n in ("lowmaps", "wta", "wmf"))
+    # 160 = 4 * 40 is an exact stride: the cost is built inside K4
+    assert all(K.LAUNCHES[n] == 1 for n in ("cvc_lowmaps", "wta", "wmf"))
+    assert K.LAUNCHES["lowmaps"] == 0
     want = stereo_gif_forward(left, right, cfg, device="cpu")
     for a, b in zip(got, want):
         assert a.device.type == "cuda"
         assert (a.cpu() != b).float().mean() <= 2e-3
+
+
+# ---- the fused tails: K4, K10, and K2 at the TPU K5's generic ratios ------
+
+def _views(dev, H, W, s, k, B=1, seed=0):
+    """Stacked views (lefts first) with a shifted right view, their random
+    gradients and the guide statistics."""
+    rng = np.random.default_rng(seed)
+    left = rng.random((B, H, W, 3)).astype(np.float32)
+    views = torch.as_tensor(np.concatenate([left, np.roll(left, -3, axis=2)]), device=dev)
+    grds = torch.as_tensor(rng.random((2 * B, H, W)).astype(np.float32), device=dev)
+    return views, grds, guide_stats(views, (H // s, W // s), k, 1e-4).contiguous()
+
+
+FUSED_CASES = [(4, 5, 150, 320, {}), (2, 9, 72, 160, {}), (8, 3, 144, 320, {}),
+               (3, 5, 99, 159, {}),                                # an odd ratio
+               (4, 5, 70, 150, {"tau1": 0.3, "tau2": 0.05}),       # quasi columns, clamps
+               (2, 9, 72, 160, {"tau1": 0.3, "alpha": 0.7, "border_cost": 0.5})]
+
+
+@pytest.mark.parametrize("s,k,H,W,cost", FUSED_CASES)
+@pytest.mark.parametrize("B", [1, 2])
+def test_cvc_low_maps_kernel_matches_plain(dev, s, k, H, W, cost, B):
+    """K4 is bitwise its plain version (sampled cost, then K1's plain
+    version), both directions, with and without clamps."""
+    views, grds, stats = _views(dev, H, W, s, k, B)
+    K.reset_launches()
+    got = K.cvc_low_maps(views, grds, stats, 16, k, **cost)
+    assert K.LAUNCHES["cvc_lowmaps"] == 1 and K.LAUNCHES["lowmaps"] == 0
+    want = K.cvc_low_maps_plain(views, grds, stats, 16, k, **cost)
+    assert got.shape == want.shape == (2 * B, 4, 16, H // s, W // s)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("s,k,H,W,cost", FUSED_CASES)
+@pytest.mark.parametrize("B", [1, 2])
+def test_cvc_wta_kernel_matches_k4_then_k2(dev, s, k, H, W, cost, B):
+    """K10 is bitwise K4's kernel followed by K2's kernel, and within the
+    argmin tie class of its plain version."""
+    views, grds, stats = _views(dev, H, W, s, k, B, seed=1)
+    K.reset_launches()
+    got = K.cvc_wta(views, grds, stats, 16, k, **cost)
+    assert K.LAUNCHES["cvc_wta"] == 1 and K.LAUNCHES["wta"] == 0
+    assert got.dtype == torch.uint8 and 1 <= int(got.min()) and int(got.max()) < 16
+    two = K.upsample_wta(views, K.cvc_low_maps(views, grds, stats, 16, k, **cost))
+    assert torch.equal(got, two)
+    plain = K.cvc_wta_plain(views, grds, stats, 16, k, **cost)
+    assert (got != plain).float().mean() <= 2e-3
+
+
+def test_cvc_wta_kernel_refuses_a_tile_beyond_shared_memory(dev):
+    """Ratio 1 with a 17x17 box: a 64x64 output tile spans 65x65 low-res
+    pixels and the chain's band does not fit a block's shared memory."""
+    views, grds, stats = _views(dev, 80, 96, 1, 17)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.cvc_wta(views, grds, stats, 8, 17)
+
+
+@pytest.mark.parametrize("hw,HW", [((30, 48), (60, 90)), ((40, 70), (40, 70)), ((9, 7), (75, 93))])
+def test_upsample_wta_kernel_at_generic_ratios(dev, hw, HW):
+    """K2 at the ratios of the TPU's generic kernel: sub-2x, 1 and above 8."""
+    rng = np.random.default_rng(HW[1])
+    g = torch.as_tensor(rng.random((2, *HW, 3)).astype(np.float32), device=dev)
+    maps = torch.as_tensor(rng.random((2, 4, 16, *hw)).astype(np.float32), device=dev)
+    got = K.upsample_wta(g, maps)
+    assert (got != K.upsample_wta_plain(g, maps)).float().mean() <= 2e-3
+
+
+@pytest.mark.parametrize("W,kw,names", [
+    (160, {}, ("cvc_lowmaps", "wta", "wmf")),
+    (154, {}, ("lowmaps", "wta", "wmf")),
+    (160, {"tail_fusion": "full"}, ("cvc_wta", "wmf")),
+    (154, {"tail_fusion": "full"}, ("lowmaps", "wta", "wmf")),
+    (96, {"subsample": 1}, ("lowmaps", "wta", "wmf")),
+], ids=["exact", "quasi", "full", "full-quasi", "s1"])
+def test_batch_forward_on_card(dev, W, kw, names):
+    """Each tail on the card: exactly its kernels launch, once for all 2B
+    views; each frame equals the single-frame forward bitwise and the CPU
+    within the argmin tie class."""
+    rng = np.random.default_rng(W)
+    left = rng.random((3, 64, W, 3)).astype(np.float32)
+    right = np.roll(left, -4, axis=2)
+    cfg = GIFConfig(max_dis=8, med_sz=7, **kw)
+    K.reset_launches()
+    ld, rd = stereo_gif_forward_batch(left, right, cfg)
+    assert {n for n, c in K.LAUNCHES.items() if c} == set(names)
+    assert all(K.LAUNCHES[n] == 1 for n in names)
+    for b in range(3):
+        one = stereo_gif_forward(left[b], right[b], cfg)
+        assert torch.equal(one[0], ld[b]) and torch.equal(one[1], rd[b])
+    cpu = stereo_gif_forward_batch(left, right, cfg, device="cpu")
+    for a, b in zip((ld, rd), cpu):
+        assert a.device.type == "cuda" and (a.cpu() != b).float().mean() <= 2e-3
 
 
 # ---- STEREO_SGBM: K6-K9, bitwise equal to their plain versions -----------

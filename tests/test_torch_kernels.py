@@ -137,7 +137,7 @@ def _wrapper_inputs():
 
 
 @pytest.mark.parametrize("name", ["lowmaps", "wta", "wmf", "bt_cost", "sgbm_scan", "select",
-                                  "speckle"])
+                                  "speckle", "cvc_lowmaps", "cvc_wta"])
 def test_wrappers_on_cpu_run_plain_and_count_nothing(name):
     """Given CPU tensors each wrapper returns its plain version's result and
     launches nothing."""
@@ -161,6 +161,12 @@ def test_wrappers_on_cpu_run_plain_and_count_nothing(name):
         got, want = K.sgbm_aggregate(S, 600, 2400), K.sgbm_aggregate_plain(S, 600, 2400)
     elif name == "select":
         got, want = K.select_disparity(S, 10, 1), K.select_disparity_plain(S, 10, 1)
+    elif name == "cvc_lowmaps":
+        grd = g[..., 0].contiguous()
+        got, want = K.cvc_low_maps(g, grd, stats, 8, 5), K.cvc_low_maps_plain(g, grd, stats, 8, 5)
+    elif name == "cvc_wta":
+        grd = g[..., 0].contiguous()
+        got, want = K.cvc_wta(g, grd, stats, 8, 5), K.cvc_wta_plain(g, grd, stats, 8, 5)
     else:
         got, want = K.segmin_sweep(S[..., 0], conn, 1), K.segmin_sweep_plain(S[..., 0], conn, 1)
     assert torch.equal(got, want)

@@ -20,8 +20,7 @@ from primestereomatch_torch.utils import bad_pixel_metrics, load_dataset
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN_NONOCC = {"Teddy": 17.229, "Cones": 9.072}
-TPU_SELECTORS = ("tail_fusion", "cvc_impl", "wta_impl", "wmf_impl", "upsample_impl",
-                 "wta_d_chunk")
+TPU_SELECTORS = ("cvc_impl", "wta_impl", "wmf_impl", "upsample_impl", "wta_d_chunk")
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +57,8 @@ def test_crop_matches_jax_pipeline(crop, run_postprocess):
                  wta_impl="xla", tail_fusion="full"),
 ], ids=["default", "s2_d32_tau"])
 def test_from_jax_config_round_trips(jax_cfg):
-    """Every field the port reads comes across; the TPU selectors are dropped."""
+    """Every field the port reads comes across, `tail_fusion` included; the
+    TPU selectors are dropped."""
     cfg = from_jax_config(dataclasses.asdict(jax_cfg))
     assert dataclasses.asdict(cfg) == {k: v for k, v in dataclasses.asdict(jax_cfg).items()
                                        if k not in TPU_SELECTORS}
@@ -85,8 +85,9 @@ def test_from_jax_config_rejects_unknown_keys():
     ("wmf_mode", "approx"), ("max_dis", 300), ("wta_d_chunk", 0),
 ])
 def test_config_rejects_unknown_values(field, value):
-    """Unknown values raise: the port's own fields in GIFConfig, the TPU
-    selectors (which GIFConfig no longer has) in from_jax_config."""
+    """Unknown values raise: the port's own fields (`tail_fusion` among
+    them) in GIFConfig, the TPU selectors (which GIFConfig does not have) in
+    from_jax_config."""
     with pytest.raises(ValueError):
         if field in TPU_SELECTORS:
             from_jax_config({**dataclasses.asdict(JaxGIFConfig()), field: value})
