@@ -15,8 +15,14 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      upsampling ratio 1: the TPU's generic-ratio kernel K5); K4 (cost +
      low-maps, bitwise expected) and K10 (cost + chain + WTA, also against
      K4 -> K2 on the card, 0 differing pixels expected) at a seeded ZED-VGA
-     pair (376x672, D=64) and the 2K pair; SGBM (K6-K9, bitwise) at Teddy
-     D=64 and the 2K pair rounded to uint8, D=256;
+     pair (376x672, D=64) and the 2K pair; K3 at 2K on two inputs, the WTA
+     output and uniformly random disparities over all 256 bins (the most
+     bin-window passes), 0 differing pixels required at every K3 shape;
+     SGBM (K6-K9, bitwise) at Teddy D=64 and the 2K pair rounded to uint8,
+     D=256: K7's uint16 group partials summed on the card against the
+     plain int32 S, its int32 path (a P2 beyond the uint16 bound) against
+     the plain S at that P2, K8 from the partials and from the int32 S
+     against the plain selection;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after, and its kernels (and no others) asserted. GIF:
      Teddy and Cones end to end (K1, K2, K3), %BP(nonocc) within 0.3 of the
@@ -30,10 +36,14 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      Cones, whose int16 outputs must hash to the JAX package's (sha256) and
      meet the cv2-golden bounds of tests/test_sgbm_cv2_golden.py, then the
      2K pair with num_disparities=256, whose interior medians must be the
-     field's 96 and 48 within 1;
+     field's 96 and 48 within 1; every SGBM frame launches K6 twice, K7
+     twice (the partials route) and K8 once;
   5. times with CUDA events (3 warm-up, 20 timed launches; 1 and 2 for
      the slow SGBM plain versions at 2K, 1 and 3 for the fused tails' plain
-     versions at 2K) of each kernel and its plain version, end-to-end frame
+     versions at 2K; K3's plain version on the random 2K input runs once)
+     of each kernel and its plain version, K3's bin-window passes per block,
+     K7's bytes per (pixel, d) by its own count, the rate that follows,
+     its time at four ring sizes and on 8 image rows alone, end-to-end frame
      times (host clock, synchronised; 10 frames for the 2K GIF paths), a
      torch.profiler pass over 5 frames per shape and path for the device
      time by kernel and the device's idle share, the speckle sweeps and
@@ -60,7 +70,7 @@ import torch
 
 import primestereomatch_torch as psm
 from primestereomatch_torch import kernels as K
-from primestereomatch_torch.kernels import _build
+from primestereomatch_torch.kernels import _build, sgbm_scan
 from primestereomatch_torch.models.gif_pipeline import _to_u8, stacked_views
 from primestereomatch_torch.ops import sgbm as sgbm_ops
 from primestereomatch_torch.ops.cost_volume import sampled_cost_volumes
@@ -119,6 +129,18 @@ def cuda_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_once(fn):
+    """`fn()` and the device ms of that one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
@@ -205,11 +227,12 @@ def bound_scan(cost: torch.Tensor, n_dirs: int):
     return bound(n * (cost.element_size() + 4), 8 * n_dirs * n, INT32_OPS_PER_S)
 
 
-def bound_select(S: torch.Tensor):
-    H, W, _ = S.shape
-    # read S once, write int16 disparities; per value 2 ops for the argmin
-    # and 3 for the far-set min
-    return bound(4 * S.numel() + 2 * H * W, 5 * S.numel(), INT32_OPS_PER_S)
+def bound_select(shape):
+    H, W, D = shape
+    # read the aggregated cost once (4 bytes per value: the int32 S, or two
+    # uint16 partials), write int16 disparities; per value 2 ops for the
+    # argmin and 3 for the far-set min
+    return bound(4 * H * W * D + 2 * H * W, 5 * H * W * D, INT32_OPS_PER_S)
 
 
 def bound_sweep(m: torch.Tensor):
@@ -306,21 +329,47 @@ def parity(name: str, cfg, left, right, dev, report, with_wmf: bool = True):
     }
     if with_wmf:
         g_u8 = _to_u8(g2).contiguous()
-        med_k = K.weighted_median(disp_p, g_u8, cfg.wmf_radius, D, cfg.wmf_sigma)
-        med_p = K.weighted_median_plain(disp_p, g_u8, cfg.wmf_radius, D, cfg.wmf_sigma)
-        diff = (med_k.int() - med_p.int()).abs()
-        frac = float((diff > 0).float().mean())
-        row["wmf"] = {"max_abs_err": int(diff.max()), "mismatch": frac,
-                      "n_differ": int((diff > 0).sum()), "n": diff.numel()}
-        log(f"parity {name} weighted_median (B,H,W) r={cfg.wmf_radius} bins={D}: "
-            f"mismatch={frac:.3e} ({row['wmf']['n_differ']} px) "
-            f"max|diff|={row['wmf']['max_abs_err']} (bounds 1e-3, 1)")
-        if frac > 1e-3 or int(diff.max()) > 1:
-            raise AssertionError(f"weighted_median disagrees with its plain version at {name}")
+        r, sig = cfg.wmf_radius, cfg.wmf_sigma
+
+        def wmf_parity(key, disp):
+            (med_p, plain_ms) = timed_once(lambda: K.weighted_median_plain(disp, g_u8, r, D, sig))
+            med_k = K.weighted_median(disp, g_u8, r, D, sig)
+            diff = (med_k.int() - med_p.int()).abs()
+            frac = float((diff > 0).float().mean())
+            passes = K.wmf.bin_window_passes(disp, r, D).float()
+            row[key] = {"max_abs_err": int(diff.max()), "mismatch": frac,
+                        "n_differ": int((diff > 0).sum()), "n": diff.numel(),
+                        "passes_mean": float(passes.mean()), "passes_max": int(passes.max())}
+            log(f"parity {name} weighted_median ({key}) (B,H,W) r={r} bins={D}: "
+                f"mismatch={frac:.3e} ({row[key]['n_differ']} px) "
+                f"max|diff|={row[key]['max_abs_err']} (bounds 1e-3, 1; 0 px required); "
+                f"bin-window passes per block mean {row[key]['passes_mean']:.3f} "
+                f"max {row[key]['passes_max']}")
+            if frac > 1e-3 or int(diff.max()) > 1:
+                raise AssertionError(f"weighted_median disagrees with its plain version at {name}")
+            if row[key]["n_differ"]:
+                raise AssertionError(f"weighted_median ({key}) is not bitwise its plain version "
+                                     f"at {name}")
+            return med_p, plain_ms
+
+        med_p, _ = wmf_parity("wmf", disp_p)
         timing["wmf"] = (
-            lambda: K.weighted_median(disp_p, g_u8, cfg.wmf_radius, D, cfg.wmf_sigma),
-            lambda: K.weighted_median_plain(disp_p, g_u8, cfg.wmf_radius, D, cfg.wmf_sigma),
-            bound_wmf(disp_p, med_p, cfg.wmf_radius, D))
+            lambda: K.weighted_median(disp_p, g_u8, r, D, sig),
+            lambda: K.weighted_median_plain(disp_p, g_u8, r, D, sig),
+            bound_wmf(disp_p, med_p, r, D))
+        if D > 64:
+            # the most bin-window passes: uniformly random disparities over
+            # every bin; its plain version runs once (the parity run is timed)
+            rnd = torch.as_tensor(np.random.default_rng(3).integers(
+                0, D, tuple(disp_p.shape), dtype=np.uint8), device=dev)
+            med_r, plain_ms = wmf_parity("wmf_random", rnd)
+            b_ms, b_by = bound_wmf(rnd, med_r, r, D)
+            rr = row["wmf_random"]
+            rr.update(ms=cuda_ms(lambda: K.weighted_median(rnd, g_u8, r, D, sig)),
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            log(f"time {name} wmf_random: kernel {rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} ms "
+                f"(one run), bound {b_ms:.5f} ms ({b_by}), {b_ms / rr['ms']:.1%} of bound")
+            del rnd, med_r
     time_rows(name, row, timing)
     report[name] = row
 
@@ -410,13 +459,32 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
     cost = K.bt_cost(lf, rf, D, k, cost_bound)
     check("bt_cost", [(cost, K.bt_cost_plain(lf, rf, D, k, cost_bound))],
           f"(H,W,C,D)={tuple(lf.shape) + (D,)} k={k} {cost.dtype}")
-    S = K.sgbm_aggregate(cost, cfg.p1, cfg.p2, nd)
-    check("sgbm_scan", [(S, K.sgbm_aggregate_plain(cost, cfg.p1, cfg.p2, nd))],
-          f"(H,W,D)={tuple(S.shape)} {nd} directions")
+    # K7, the main path's entry: uint16 group partials, summed here on the
+    # card only to hold them against the plain int32 S
+    parts = K.sgbm_aggregate_partials(cost, cfg.p1, cfg.p2, nd, cost_bound)
+    if len(parts) != 2 or any(q.dtype != torch.uint16 for q in parts):
+        raise AssertionError(f"expected two uint16 partials at {name}, got "
+                             f"{[(q.dtype, tuple(q.shape)) for q in parts]}")
+    S = K.sgbm_aggregate_plain(cost, cfg.p1, cfg.p2, nd)
+    check("sgbm_scan", [(sum(q.int() for q in parts), S)],
+          f"(H,W,D)={tuple(S.shape)} {nd} directions, two uint16 partials summed")
+    # its int32 path: a P2 beyond the uint16 bound leaves one int32 partial
+    p2_wide = 2**16
+    wide = K.sgbm_aggregate_partials(cost, cfg.p1, p2_wide, nd, cost_bound)
+    if len(wide) != 1 or wide[0].dtype != torch.int32:
+        raise AssertionError(f"expected the int32 S at P2={p2_wide}, got {len(wide)} partials")
+    main_scan = row["sgbm_scan"]
+    check("sgbm_scan", [(wide[0], K.sgbm_aggregate_plain(cost, cfg.p1, p2_wide, nd))],
+          f"(H,W,D)={tuple(S.shape)} {nd} directions, int32 S at P2={p2_wide}")
+    main_scan["int32_n_differ"] = row["sgbm_scan"]["n_differ"]
+    row["sgbm_scan"] = main_scan
+    del wide
     torch.cuda.empty_cache()
-    disp = K.select_disparity(S, *sel)
-    check("select", [(disp, K.select_disparity_plain(S, *sel))],
-          f"(H,W,D)={tuple(S.shape)} uniq/d12/minD={sel}")
+    disp = K.select_disparity_partials(parts, *sel)
+    disp_p = K.select_disparity_plain(S, *sel)
+    check("select", [(disp, disp_p), (K.select_disparity(S, *sel), disp_p)],
+          f"(H,W,D)={tuple(S.shape)} uniq/d12/minD={sel}, from the partials and from the "
+          f"int32 S")
     _, labels, (conn_up, _, conn_lf, _) = sgbm_ops.speckle_graph(
         disp, 16 * cfg.speckle_range, (cfg.min_disparity - 1) * 16)
     c_lf, c_up = conn_lf.to(torch.uint8), conn_up.to(torch.uint8)
@@ -429,11 +497,11 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
         "bt_cost": (lambda: K.bt_cost(lf, rf, D, k, cost_bound),
                     lambda: K.bt_cost_plain(lf, rf, D, k, cost_bound),
                     bound_bt_cost(lf, cost)),
-        "sgbm_scan": (lambda: K.sgbm_aggregate(cost, cfg.p1, cfg.p2, nd),
+        "sgbm_scan": (lambda: K.sgbm_aggregate_partials(cost, cfg.p1, cfg.p2, nd, cost_bound),
                       lambda: K.sgbm_aggregate_plain(cost, cfg.p1, cfg.p2, nd),
                       bound_scan(cost, nd)),
-        "select": (lambda: K.select_disparity(S, *sel),
-                   lambda: K.select_disparity_plain(S, *sel), bound_select(S)),
+        "select": (lambda: K.select_disparity_partials(parts, *sel),
+                   lambda: K.select_disparity_plain(S, *sel), bound_select(S.shape)),
         # one sweep: the row launch, then the column launch
         "speckle": (lambda: (K.segmin_sweep(labels, c_lf, 1), K.segmin_sweep(labels, c_up, 0)),
                     lambda: (K.segmin_sweep_plain(labels, c_lf, 1),
@@ -448,6 +516,33 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
         r = row[kname]
         log(f"time {name} {kname}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.5f} ms ({b_by}), {b_ms / r['ms']:.1%} of bound")
+    # K7's own traffic and the rate that follows; its int32 entry and K8's;
+    # the ring of pixels ahead at four sizes (bytes of shared memory a warp)
+    scan, n = row["sgbm_scan"], cost.numel()
+    scan["bytes_per_value"] = sgbm_scan.bytes_per_value(nd, cost.element_size(), True)
+    scan["tb_per_s"] = n * scan["bytes_per_value"] / scan["ms"] / 1e9
+    scan["int32_ms"] = cuda_ms(lambda: K.sgbm_aggregate(cost, cfg.p1, cfg.p2, nd))
+    scan["int32_bytes_per_value"] = sgbm_scan.bytes_per_value(nd, cost.element_size(), False)
+    scan["int32_tb_per_s"] = n * scan["int32_bytes_per_value"] / scan["int32_ms"] / 1e9
+    row["select"]["int32_ms"] = cuda_ms(lambda: K.select_disparity(S, *sel))
+    ring = sgbm_scan.RING_BYTES
+    scan["ring_ms"] = {}
+    for nbytes in (4096, 8192, 16384, 32768):
+        sgbm_scan.RING_BYTES = nbytes
+        scan["ring_ms"][nbytes] = cuda_ms(
+            lambda: K.sgbm_aggregate_partials(cost, cfg.p1, cfg.p2, nd, cost_bound), 10, 2)
+    sgbm_scan.RING_BYTES = ring
+    # the first 8 image rows alone: where this takes as long as the whole
+    # image, a launch lasts as long as its longest path's chain of steps
+    few = cost[:8].contiguous()
+    scan["rows8_ms"] = cuda_ms(
+        lambda: K.sgbm_aggregate_partials(few, cfg.p1, cfg.p2, nd, cost_bound))
+    log(f"time {name} sgbm_scan moves {scan['bytes_per_value']} B per (pixel, d): "
+        f"{scan['tb_per_s']:.3f} TB/s; the int32 S entry {scan['int32_ms']:.4f} ms "
+        f"({scan['int32_bytes_per_value']} B, {scan['int32_tb_per_s']:.3f} TB/s); select from "
+        f"the int32 S {row['select']['int32_ms']:.4f} ms; ring bytes per warp -> ms "
+        f"{ {k: round(v, 4) for k, v in scan['ring_ms'].items()} } (in use: {ring}); the first "
+        f"8 rows alone {scan['rows8_ms']:.4f} ms")
     report[name] = row
 
 
@@ -672,6 +767,13 @@ def main() -> int:
     log(f"SGBM main path launches: {slaunches}; per frame: {sper_frame}")
     if min(slaunches[k] for k in SGBM_KERNELS) < 1:
         raise AssertionError(f"a kernel of the SGBM path never launched: {slaunches}")
+    for n, per in sper_frame.items():
+        # the partials route: K6 row + column pass, K7 a family of each group
+        # per launch, K8 once; K9 two launches a sweep, four sweeps a check
+        if (per["bt_cost"], per["sgbm_scan"], per["select"]) != (2, 2, 1) or per["speckle"] % 4:
+            raise AssertionError(f"SGBM {n} launched {per}, expected K6 2, K7 2, K8 1")
+    if any(v for k, v in _build.LAUNCHES.items() if k not in SGBM_KERNELS):
+        raise AssertionError(f"the SGBM path launched a GIF kernel: {_build.LAUNCHES}")
 
     goldens = np.load(ROOT / "tests" / "golden" / "sgbm_cv2.npz")
     nd = scfg.num_disparities
@@ -720,7 +822,7 @@ def main() -> int:
     # the longer kernel names first: "lowmaps_kernel" is part of "cvc_lowmaps_kernel"
     gif_tags = {"cvc_lowmaps_kernel": "cvc_lowmaps", "cvc_wta_kernel": "cvc_wta",
                 "lowmaps_kernel": "lowmaps", "upsample_wta_kernel": "wta",
-                "joint_wmf_kernel": "wmf"}
+                "joint_wmf_kernel": "wmf", "wmf_weights_kernel": "wmf"}
     sgbm_tags = {"bt_row_kernel": "bt_cost", "bt_col_kernel": "bt_cost",
                  "sgm_scan_kernel": "sgbm_scan", "select_kernel": "select",
                  "segmin_": "speckle"}
@@ -788,6 +890,18 @@ def main() -> int:
             row["at_generic"] = {**{key: g[key] for key in timed},
                                  "mismatch": g.get("mismatch", g["n_differ"] / g["n"]),
                                  "at": "teddy 375x450 D=64, subsample=1"}
+        if kname == "wmf":
+            g = report["2k"]["wmf_random"]
+            row["at_2k_random"] = {**{key: g[key] for key in timed}, "mismatch": g["mismatch"],
+                                   "passes_mean": g["passes_mean"],
+                                   "passes_max": g["passes_max"],
+                                   "at": "2k, uniformly random disparities over 256 bins"}
+            for key, rep_k in (("at", t), ("at_2k", k2)):
+                row[f"passes_{key}"] = {"mean": rep_k["passes_mean"], "max": rep_k["passes_max"]}
+        if kname in ("sgbm_scan", "select"):
+            extra = [key for key in t if key.startswith(("int32_", "bytes_", "tb_", "ring_", "rows8_"))]
+            row["more"] = {"teddy": {key: t[key] for key in extra},
+                           "2k": {key: k2[key] for key in extra}}
         if kname in GIF_KERNELS:
             row["launches_by_path"] = {p: c.get(kname, 0) for p, c in path_launches.items()}
         rows.append(row)

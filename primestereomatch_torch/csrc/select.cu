@@ -8,6 +8,11 @@
 // integer sub-pixel step; the minX band; then per row the scatter-based
 // pseudo right disparity and the floor/ceil dual LR check.
 //
+// The aggregated cost comes as the int32 S or as the scan kernel's group
+// partials, one or two uint16 tensors that are added in registers as they
+// are read (S is then never formed): the kernel is a template over the
+// three inputs and the same otherwise.
+//
 // What bounds it: reading S once (4 bytes per pixel and d) against ~5
 // integer operations per value: bytes. One block per image row, one warp
 // per pixel at a time: the lanes read neighbouring d of one pixel
@@ -25,8 +30,8 @@
 //   * The LR check reads disp2 at x - floor(d) and x - ceil(d) from shared
 //     memory.
 //
-// Layout: S (H, W, D) int32, out (H, W) int16. Grid H, 256 threads,
-// 12 bytes of shared memory per column.
+// Layout: S or each partial (H, W, D), out (H, W) int16. Grid H, 256
+// threads, 12 bytes of shared memory per column.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,8 +48,23 @@ __device__ __forceinline__ int wrap_mul(int a, int b) {
   return (int)((unsigned)a * (unsigned)b);
 }
 
-__global__ void select_kernel(const int* __restrict__ S, int16_t* __restrict__ out,
-                              int H, int W, int D, int uniq, int d12, int minD) {
+// The aggregated cost of one pixel: NP = 0 the int32 S, NP = 1 or 2 that
+// many uint16 partials, summed as they are read.
+template <int NP>
+struct Costs {
+  const void* a;
+  const void* b;
+  __device__ __forceinline__ int operator[](int d) const {
+    if (NP == 0) return ((const int*)a)[d];
+    if (NP == 1) return ((const uint16_t*)a)[d];
+    return (int)((const uint16_t*)a)[d] + (int)((const uint16_t*)b)[d];
+  }
+};
+
+template <int NP>
+__global__ void select_kernel(const void* __restrict__ Sa, const void* __restrict__ Sb,
+                              int16_t* __restrict__ out, int H, int W, int D, int uniq,
+                              int d12, int minD) {
   extern __shared__ unsigned char smem[];
   unsigned long long* key2 = (unsigned long long*)smem;   // [W]
   int* disp = (int*)(key2 + W);                             // [W]
@@ -59,7 +79,8 @@ __global__ void select_kernel(const int* __restrict__ S, int16_t* __restrict__ o
   __syncthreads();
 
   for (int x = warp; x < W; x += n_warps) {
-    const int* s = S + ((size_t)y * W + x) * D;
+    const size_t at = ((size_t)y * W + x) * D * (NP == 0 ? sizeof(int) : sizeof(uint16_t));
+    const Costs<NP> s = {(const char*)Sa + at, NP == 2 ? (const char*)Sb + at : nullptr};
     // first minimum: lane-local ascending d, then (value, d) shuffles
     int bv = 0x7fffffff, bd = 0x7fffffff;
     for (int d = lane; d < D; d += 32) {
@@ -119,16 +140,28 @@ __global__ void select_kernel(const int* __restrict__ S, int16_t* __restrict__ o
   }
 }
 
-}  // namespace
-
-extern "C" int psm_select_disparity(const int* S, int16_t* out, int H, int W, int D,
-                                    int uniq, int d12, int minD, void* stream) {
-  if (H <= 0 || W <= 0) return (int)cudaSuccess;
+template <int NP>
+cudaError_t launch(const void* Sa, const void* Sb, int16_t* out, int H, int W, int D, int uniq,
+                   int d12, int minD, cudaStream_t s) {
   const size_t smem = (size_t)W * (sizeof(unsigned long long) + sizeof(int));
   cudaError_t err = cudaFuncSetAttribute(
-      select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  select_kernel<<<H, THREADS, smem, (cudaStream_t)stream>>>(S, out, H, W, D, uniq, d12,
-                                                            minD);
-  return (int)cudaGetLastError();
+      select_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  select_kernel<NP><<<H, THREADS, smem, s>>>(Sa, Sb, out, H, W, D, uniq, d12, minD);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// n_partials = 0: Sa is the int32 S; 1 or 2: Sa (and Sb) are uint16 group
+// partials whose sum is S.
+extern "C" int psm_select_disparity(const void* Sa, const void* Sb, int n_partials,
+                                    int16_t* out, int H, int W, int D, int uniq, int d12,
+                                    int minD, void* stream) {
+  if (H <= 0 || W <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_partials == 0) return (int)launch<0>(Sa, Sb, out, H, W, D, uniq, d12, minD, s);
+  if (n_partials == 1) return (int)launch<1>(Sa, Sb, out, H, W, D, uniq, d12, minD, s);
+  if (n_partials == 2) return (int)launch<2>(Sa, Sb, out, H, W, D, uniq, d12, minD, s);
+  return (int)cudaErrorInvalidValue;
 }

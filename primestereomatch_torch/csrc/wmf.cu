@@ -8,91 +8,239 @@
 //
 // What bounds it: ~11 flops and one expf per (pixel, window offset), 361
 // offsets at r = 9, against 5 bytes of device memory per pixel: the
-// arithmetic is the bound, by far. The design is one thread per pixel
-// with its own histogram of n_bins floats in shared memory (bin-major, so
-// the 32 threads of a warp hit 32 different banks), accumulated in the
-// window's row-major offset order, then a sequential cumulative scan over
-// the bins. That is the plain version's summation order
-// (ops/jointwmf.py), so both give the same medians; the TPU kernel's
-// bounded K-way binary search over the bins is a later optimisation.
-// Out-of-image neighbours are skipped, which is what the plain version's
-// zero weight does (the TPU kernel's _BORDER_C padding trick is not
-// needed). The block size is cut so that n_bins*4 bytes per thread fit in
-// shared memory: 128 threads (128 KB) at n_bins = 256.
+// arithmetic is the bound, by far. What the card needs for it is many warps
+// per SM and a short inner loop, so the design keeps little state per
+// thread and reads its neighbours from shared memory:
+//
+//   * A block is a TW x TH rectangle of output pixels, one thread each. It
+//     stages the haloed (TH + 2r) x (TW + 2r) region once as one 32-bit
+//     word per pixel: the three 6-bit colours in bytes 0-2 and the
+//     disparity from bit 22 up. A pixel that adds nothing (outside the
+//     image, or d >= n_bins) carries NO_D there, which lies in no bin
+//     window, so the inner loop needs no bounds tests.
+//   * The squared colour distance is an integer in [0, 3 * 63^2]: a
+//     per-byte absolute difference and one dp4a. The weight comes from a
+//     table of expf(-(float)dist2 * inv_two_sig2) that a small kernel of
+//     this file fills with the device's own expf before the filter runs
+//     (48 KB, read through L1: measured faster than a copy of its head in
+//     shared memory, whose banks the bins need). The bits are those of
+//     the plain version
+//     (ops/jointwmf.py): there e*e for integer e <= 63 and the sum of
+//     three such products are exact in float32, so its dist2 is the same
+//     integer as a float, and the table holds the same expf of the same
+//     product. A subnormal weight (dist2 above ~7100 at sigma 25.5) is
+//     stored as 0: the plain version adds its weights with scatter_add_,
+//     a float atomic add, which on the card flushes subnormal operands to
+//     zero. It decides a median only where a window holds nothing else
+//     (a centre pixel with d >= n_bins and every binned neighbour that far
+//     in colour); the pipeline's disparities are all below n_bins.
+//   * No thread holds n_bins floats. Each bin's weight h_k is the sum of
+//     its weights in row-major window-offset order and does not depend on
+//     the other bins, so a thread sums NB bins at a time (NB floats of
+//     shared memory, bin-major: conflict-free). The block reduces the
+//     least and greatest disparity [dmin, dmax] of its haloed tile; bins
+//     outside are exact zeros, so the bin windows start at dmin and end at
+//     dmax. Sweep A takes the windows in order: one pass over the offsets
+//     adds those whose d falls in the window, then the running cumulative
+//     sum cum_k = fl(cum_{k-1} + h_k) goes on through the window's bins
+//     and its value at the window's end is kept. After the last window
+//     cum is the plain version's total, bit for bit. Sweep B sums again
+//     the one window in which cum crosses half the total (unless it is
+//     the last one, whose sums are still there) and walks it from the kept
+//     cum of the window before. With one window there is no sweep B.
+//     Adding the same weights to a bin in the same order gives the same
+//     bits, so the medians equal the plain version's at every pixel.
 //
 // Layout: disp (B, H, W) uint8, guide (B, H, W, 3) uint8, out (B, H, W)
-// uint8. Grid (ceil(H*W/threads), B).
+// uint8, wtab (N_DIST2) float scratch. Grid (ceil(W/TW), ceil(H/TH), B).
 
+#include <cfloat>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The tile's height, the bin window and the look-ahead are -D knobs for
+// tune_wmf.py, which times other values on the card; kernels/wmf.py holds
+// the same defaults for its pass counter.
+#ifndef PSM_WMF_TH
+#define PSM_WMF_TH 8
+#endif
+#ifndef PSM_WMF_NB
+#define PSM_WMF_NB 64
+#endif
+#ifndef PSM_WMF_U
+#define PSM_WMF_U 4
+#endif
+
 namespace {
 
-constexpr int SMEM_BUDGET = 200 * 1024;
+constexpr int TW = 32, TH = PSM_WMF_TH;    // a warp is one row of the tile
+constexpr int NT = TW * TH;
+constexpr int NB = PSM_WMF_NB;             // bins a thread sums at a time
+constexpr int MAXWIN = (256 + NB - 1) / NB;
+constexpr int N_DIST2 = 3 * 63 * 63 + 1;   // every squared distance of 6-bit colours
+constexpr int U = PSM_WMF_U;               // offsets looked up before their sums
+constexpr int SMEM_LIMIT = 227 * 1024;
+constexpr unsigned NO_D = 1023;            // in no bin window
+constexpr unsigned CMASK = 0x003f3f3fu;
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void joint_wmf_kernel(const uint8_t* __restrict__ disp,
-                                 const uint8_t* __restrict__ guide,
-                                 uint8_t* __restrict__ out, int H, int W,
-                                 int r, int n_bins, float inv_two_sig2) {
-  extern __shared__ float hist[];   // hist[bin * blockDim.x + tid]
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int pix = blockIdx.x * nt + tid;
-  const int b = blockIdx.y;
-  if (pix >= H * W) return;
-  float* hp = hist + tid;
-  for (int k = 0; k < n_bins; ++k) hp[k * nt] = 0.0f;
+__global__ void wmf_weights_kernel(float* __restrict__ wtab, float inv_two_sig2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < N_DIST2) {
+    const float w = expf(-(float)i * inv_two_sig2);
+    wtab[i] = w >= FLT_MIN ? w : 0.0f;
+  }
+}
 
-  const int y = pix / W, x = pix % W;
-  const uint8_t* db = disp + (size_t)b * H * W;
-  const uint8_t* gb = guide + (size_t)b * H * W * 3;
-  const float c0 = (float)(gb[(size_t)pix * 3 + 0] >> 2);
-  const float c1 = (float)(gb[(size_t)pix * 3 + 1] >> 2);
-  const float c2 = (float)(gb[(size_t)pix * 3 + 2] >> 2);
+// Sum the bins [lo, lo + NB) of one pixel over its window, in row-major
+// offset order. hp: the thread's bins (stride NT); t0: the window's first
+// word in the tile. U offsets are read and weighted before their sums are
+// added, so the table reads of a group are in flight together.
+__device__ __forceinline__ void sum_window(float* __restrict__ hp,
+                                           const uint32_t* __restrict__ t0, int tw, int k2,
+                                           uint32_t cw, unsigned lo,
+                                           const float* __restrict__ wtab) {
+#pragma unroll 8
+  for (int k = 0; k < NB; ++k) hp[k * NT] = 0.0f;
+  for (int oy = 0; oy < k2; ++oy) {
+    const uint32_t* tr = t0 + oy * tw;
+    for (int ox = 0; ox < k2; ox += U) {
+      unsigned k[U];
+      float w[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const uint32_t q = ox + u < k2 ? tr[ox + u] : NO_D << 22;
+        k[u] = (q >> 22) - lo;
+        w[u] = 0.0f;
+        if (k[u] < (unsigned)NB) {
+          const unsigned e = __vabsdiffu4(cw, q & CMASK);
+          w[u] = __ldg(wtab + __dp4a(e, e, 0u));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (k[u] < (unsigned)NB) hp[k[u] * NT] += w[u];
+    }
+  }
+}
 
-  for (int yy = y - r; yy <= y + r; ++yy) {
-    if (yy < 0 || yy >= H) continue;
-    for (int xx = x - r; xx <= x + r; ++xx) {
-      if (xx < 0 || xx >= W) continue;
+__global__ void __launch_bounds__(NT)
+joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ guide,
+                 uint8_t* __restrict__ out, const float* __restrict__ wtab, int H, int W,
+                 int r, int n_bins) {
+  extern __shared__ float smem[];
+  float* hist = smem;                          // [NB][NT]
+  float* cumw = hist + NB * NT;                // [MAXWIN][NT], cum at each window's end
+  uint32_t* tile = (uint32_t*)(cumw + MAXWIN * NT);   // [TH + 2r][TW + 2r]
+  __shared__ int s_dmin, s_dmax;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TW, ty = tid / TW;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int tw = TW + 2 * r, th = TH + 2 * r;
+  const size_t img = (size_t)blockIdx.z * H * W;
+  const uint8_t* db = disp + img;
+  const uint8_t* gb = guide + img * 3;
+
+  if (tid == 0) {
+    s_dmin = 1 << 30;
+    s_dmax = -1;
+  }
+  __syncthreads();
+
+  int mn = 1 << 30, mx = -1;
+  for (int i = tid; i < tw * th; i += NT) {
+    const int yy = y0 - r + i / tw, xx = x0 - r + i % tw;
+    uint32_t word = NO_D << 22;
+    if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
       const size_t q = (size_t)yy * W + xx;
-      const int dq = db[q];
-      if (dq >= n_bins) continue;
-      const float e0 = c0 - (float)(gb[q * 3 + 0] >> 2);
-      const float e1 = c1 - (float)(gb[q * 3 + 1] >> 2);
-      const float e2 = c2 - (float)(gb[q * 3 + 2] >> 2);
-      const float dist2 = e0 * e0 + e1 * e1 + e2 * e2;
-      hp[dq * nt] += expf(-dist2 * inv_two_sig2);
+      unsigned d = db[q];
+      if (d < (unsigned)n_bins) {
+        mn = min(mn, (int)d);
+        mx = max(mx, (int)d);
+      } else {
+        d = NO_D;
+      }
+      const uint8_t* g = gb + q * 3;
+      word = (uint32_t)(g[0] >> 2) | ((uint32_t)(g[1] >> 2) << 8) |
+             ((uint32_t)(g[2] >> 2) << 16) | (d << 22);
     }
+    tile[i] = word;
   }
+  mn = __reduce_min_sync(FULL, mn);
+  mx = __reduce_max_sync(FULL, mx);
+  if ((tid & 31) == 0) {
+    atomicMin(&s_dmin, mn);
+    atomicMax(&s_dmax, mx);
+  }
+  __syncthreads();
 
-  float total = 0.0f;
-  for (int k = 0; k < n_bins; ++k) total += hp[k * nt];
-  const float half = total * 0.5f;
-  float cum = 0.0f;
-  int ans = n_bins - 1;
-  for (int k = 0; k < n_bins; ++k) {
-    cum += hp[k * nt];
-    if (cum >= half) {
-      ans = k;
-      break;
-    }
+  const int x = x0 + tx, y = y0 + ty;
+  if (x >= W || y >= H) return;
+  uint8_t* o = out + img + (size_t)y * W + x;
+  const int dmin = s_dmin, dmax = s_dmax;
+  if (dmax < 0) {          // nothing in the tile has a bin: every total is 0
+    *o = 0;
+    return;
   }
-  out[(size_t)b * H * W + pix] = (uint8_t)ans;
+  const int nwin = (dmax - dmin) / NB + 1;
+  const int k2 = 2 * r + 1;
+  const uint32_t* t0 = tile + ty * tw + tx;
+  const uint32_t cw = t0[r * tw + r] & CMASK;
+  float* hp = hist + tid;
+  float* cp = cumw + tid;
+
+  // sweep A: every window in order; cum runs on through the bins
+  float cum = 0.0f;
+  for (int w = 0; w < nwin; ++w) {
+    sum_window(hp, t0, tw, k2, cw, (unsigned)(dmin + w * NB), wtab);
+#pragma unroll 8
+    for (int k = 0; k < NB; ++k) cum += hp[k * NT];
+    cp[w * NT] = cum;
+  }
+  const float half = cum * 0.5f;
+  if (!(half > 0.0f)) {    // cum_0 = 0 >= half already
+    *o = 0;
+    return;
+  }
+  int wb = 0;
+  while (wb < nwin - 1 && !(cp[wb * NT] >= half)) ++wb;
+  // sweep B: the window of the crossing again, unless its sums are still there
+  if (wb != nwin - 1)
+    sum_window(hp, t0, tw, k2, cw, (unsigned)(dmin + wb * NB), wtab);
+  cum = wb ? cp[(wb - 1) * NT] : 0.0f;
+  int k = 0;
+  for (; k < NB - 1; ++k) {
+    cum += hp[k * NT];
+    if (cum >= half) break;
+  }
+  *o = (uint8_t)(dmin + wb * NB + k);
+}
+
+// Bytes of dynamic shared memory a block needs at window radius r.
+long long smem_bytes(int r) {
+  return 4 * ((long long)(NB + MAXWIN) * NT + (long long)(TH + 2 * r) * (TW + 2 * r));
 }
 
 }  // namespace
 
-extern "C" int psm_joint_wmf(const uint8_t* disp, const uint8_t* guide,
-                             uint8_t* out, int B, int H, int W, int r,
-                             int n_bins, float inv_two_sig2, void* stream) {
-  int nt = SMEM_BUDGET / (n_bins * (int)sizeof(float));
-  nt = nt >= 128 ? 128 : (nt / 32) * 32;
-  if (nt < 32) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)n_bins * sizeof(float) * nt;
-  cudaError_t err = cudaFuncSetAttribute(
-      joint_wmf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Returns -1 where the haloed tile of radius r does not fit a block's shared
+// memory, else the cudaError_t of the launch.
+extern "C" int psm_joint_wmf(const uint8_t* disp, const uint8_t* guide, uint8_t* out,
+                             float* wtab, int B, int H, int W, int r, int n_bins,
+                             float inv_two_sig2, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  if (r < 0 || n_bins < 1 || n_bins > 256) return (int)cudaErrorInvalidValue;
+  if (smem_bytes(r) + 64 > SMEM_LIMIT) return -1;   // 64: the static part
+  const int smem = (int)smem_bytes(r);
+  cudaStream_t s = (cudaStream_t)stream;
+  wmf_weights_kernel<<<(N_DIST2 + 255) / 256, 256, 0, s>>>(wtab, inv_two_sig2);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((H * W + nt - 1) / nt, B);
-  joint_wmf_kernel<<<grid, nt, smem, (cudaStream_t)stream>>>(
-      disp, guide, out, H, W, r, n_bins, inv_two_sig2);
+  err = cudaFuncSetAttribute(joint_wmf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  joint_wmf_kernel<<<grid, NT, smem, s>>>(disp, guide, out, wtab, H, W, r, n_bins);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,8 @@ STEREO_GIF: K1 low-maps, K2 upsample+WTA (every ratio: it is the TPU's
 polyphase kernel and its generic-ratio kernel K5 in one), K3 JointWMF, K4
 cost + low-maps (exact-stride geometries), K10 cost + chain + WTA in one
 kernel (`tail_fusion='full'`).
-STEREO_SGBM: K6 BT cost, K7 SGM scans, K8 selection, K9 speckle sweep.
+STEREO_SGBM: K6 BT cost, K7 SGM scans (uint16 group partials, or the int32
+S), K8 selection (from either), K9 speckle sweep.
 """
 
 from primestereomatch_torch.kernels._build import (  # noqa: F401
@@ -35,11 +36,16 @@ from primestereomatch_torch.kernels.bt_cost import (  # noqa: F401
     bt_cost_plain,
 )
 from primestereomatch_torch.kernels.sgbm_scan import (  # noqa: F401
+    partial_groups,
     sgbm_aggregate,
+    sgbm_aggregate_partials,
+    sgbm_aggregate_partials_plain,
     sgbm_aggregate_plain,
 )
 from primestereomatch_torch.kernels.select import (  # noqa: F401
     select_disparity,
+    select_disparity_partials,
+    select_disparity_partials_plain,
     select_disparity_plain,
 )
 from primestereomatch_torch.kernels.wmf import (  # noqa: F401

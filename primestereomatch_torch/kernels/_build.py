@@ -46,11 +46,11 @@ _ARGTYPES = {
                     [_VP] * 6 + [_I] * 7 + [_F] * 6 + [_VP]),
     "cvc_wta": ("psm_cvc_wta",
                 [_VP] * 10 + [_I] * 7 + [_F] + [_I] * 2 + [_F] * 5 + [_VP]),
-    "wmf": ("psm_joint_wmf", [_VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]),
+    "wmf": ("psm_joint_wmf", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]),
     "bt_cost": ("psm_bt_cost", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP]),
     "sgbm_scan": ("psm_sgm_scan",
-                  [_VP, _I, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP]),
-    "select": ("psm_select_disparity", [_VP, _VP, _I, _I, _I, _I, _I, _I, _VP]),
+                  [_VP, _I, _I] + [_VP, _I, _I, _I, _I] * 2 + [_I] * 6 + [_VP]),
+    "select": ("psm_select_disparity", [_VP, _VP, _I, _VP] + [_I] * 6 + [_VP]),
     "speckle": ("psm_segmin_sweep", [_VP, _VP, _VP, _I, _I, _I, _VP]),
 }
 NAMES = tuple(_ARGTYPES)

@@ -2,8 +2,12 @@
 
 Replaces primestereomatch_tpu/kernels/wmf_pallas.py::_wmf_kernel. Bound
 on the H100 by arithmetic (an expf and ~11 flops per pixel and window
-offset); one thread per pixel keeps its histogram in shared memory and
-sums it in the plain version's order.
+offset). A block takes a 32 x 8 tile of pixels, stages the haloed region
+in shared memory as one packed word per pixel, takes the weights from a
+table of the integer colour distances, and sums each pixel's bins a window
+of NB bins at a time between the least and greatest disparity of the tile,
+in the plain version's order: the medians are the plain version's, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -13,7 +17,12 @@ import ctypes
 import torch
 
 from primestereomatch_torch.kernels import _build
+from primestereomatch_torch.kernels.cvc_lowmaps import MAX_GRID_Z
 from primestereomatch_torch.ops.jointwmf import joint_wmf
+
+# the kernel's tile of output pixels and its bin window (csrc/wmf.cu: TW, TH, NB)
+TILE_W, TILE_H, NB = 32, 8, 64
+N_DIST2 = 3 * 63 * 63 + 1      # squared distances of 6-bit colours: the weight table
 
 
 def weighted_median_plain(disp: torch.Tensor, guide_u8: torch.Tensor, radius: int,
@@ -25,11 +34,33 @@ def weighted_median_plain(disp: torch.Tensor, guide_u8: torch.Tensor, radius: in
     ])
 
 
+def bin_window_passes(disp: torch.Tensor, radius: int, n_bins: int) -> torch.Tensor:
+    """Passes over the window offsets that each block of the kernel makes on
+    `disp` (B, H, W): one per window of NB bins between the least and the
+    greatest disparity below `n_bins` in the block's haloed tile, and one
+    more (the window of the median, summed again) where there are several.
+    Returns (B, tiles_y, tiles_x) int64; plain PyTorch, any device."""
+    B, H, W = disp.shape
+    d = disp.to(torch.int64)
+    ok = d < n_bins
+    ph, pw = -H % TILE_H, -W % TILE_W
+    pad = (radius, radius + pw, radius, radius + ph)
+    lo = torch.nn.functional.pad(torch.where(ok, d, n_bins), pad, value=n_bins)
+    hi = torch.nn.functional.pad(torch.where(ok, d, -1), pad, value=-1)
+    win = (TILE_H + 2 * radius, TILE_W + 2 * radius)
+    pool = lambda t: torch.nn.functional.max_pool2d(   # noqa: E731
+        t[:, None].float(), win, stride=(TILE_H, TILE_W))[:, 0].long()
+    dmin, dmax = -pool(-lo), pool(hi)
+    nwin = torch.where(dmax >= 0, (dmax - dmin) // NB + 1, 0)
+    return nwin + (nwin > 1)
+
+
 def weighted_median(disp: torch.Tensor, guide_u8: torch.Tensor, radius: int = 9,
                     n_bins: int = 64, sigma: float = 25.5) -> torch.Tensor:
     """(B, H, W) uint8 disparities + (B, H, W, 3) uint8 guide -> (B, H, W)
     uint8 medians. Launches the CUDA kernel for CUDA tensors; CPU tensors
-    take the plain version."""
+    take the plain version. A radius whose haloed tile does not fit a
+    block's shared memory raises."""
     if disp.dim() != 3 or guide_u8.shape != (*disp.shape, 3):
         raise ValueError(f"expected (B,H,W) disp and (B,H,W,3) guide, got "
                          f"{tuple(disp.shape)}, {tuple(guide_u8.shape)}")
@@ -48,11 +79,17 @@ def weighted_median(disp: torch.Tensor, guide_u8: torch.Tensor, radius: int = 9,
     B, H, W = disp.shape
     sig_q = sigma / 256.0 * 64.0
     inv_two_sig2 = 1.0 / (2.0 * sig_q * sig_q)
+    if B > MAX_GRID_Z:
+        raise ValueError(f"{B} views exceed one launch's grid")
     out = torch.empty_like(disp)
+    wtab = torch.empty(N_DIST2, dtype=torch.float32, device=disp.device)
     fn = _build.load("wmf")
-    rc = fn(disp.data_ptr(), guide_u8.data_ptr(), out.data_ptr(), B, H, W, radius,
-            n_bins, ctypes.c_float(inv_two_sig2),
+    rc = fn(disp.data_ptr(), guide_u8.data_ptr(), out.data_ptr(), wtab.data_ptr(), B, H, W,
+            radius, n_bins, ctypes.c_float(inv_two_sig2),
             torch.cuda.current_stream(disp.device).cuda_stream)
+    if rc == -1:
+        raise ValueError(f"the haloed {TILE_W}x{TILE_H} tile of radius {radius} needs more "
+                         f"shared memory than the card gives a block")
     _build.check("wmf", rc)
     _build.LAUNCHES["wmf"] += 1
     return out

@@ -6,8 +6,10 @@ Stage map, all integer:
 
   prefilter  [1,2,1]-smoothed clipped Sobel-x             ops/sgbm.py
   cost       BT pixel cost + k x k window sum     (K6)    kernels/bt_cost.py
-  aggregate  SGM scans over 3/5/8 directions      (K7)    kernels/sgbm_scan.py
-  select     WTA, uniqueness, sub-pixel, LR check (K8)    kernels/select.py
+  aggregate  SGM scans over 3/5/8 directions,     (K7)    kernels/sgbm_scan.py
+             as uint16 group partials
+  select     sum of the partials, WTA, uniqueness,(K8)    kernels/select.py
+             sub-pixel, LR check
   speckle    small components invalidated         (K9)    ops/sgbm.py + kernels/speckle.py
 
 The volumes pass between the kernels as (H, W, D) with D contiguous. On
@@ -22,7 +24,11 @@ import numpy as np
 import torch
 
 from primestereomatch_torch.config import SGBMConfig
-from primestereomatch_torch.kernels import bt_cost, select_disparity, sgbm_aggregate
+from primestereomatch_torch.kernels import (
+    bt_cost,
+    select_disparity_partials,
+    sgbm_aggregate_partials,
+)
 from primestereomatch_torch.ops.sgbm import DISP_SCALE, filter_speckles, sobel_xclip
 from primestereomatch_torch.utils.device import resolve_device
 
@@ -59,10 +65,13 @@ def stereo_sgbm_forward(
     # volumes when it fits, as in the JAX pipeline
     cost_bound = cfg.block_size**2 * ch * 2 * cfg.pre_filter_cap
     C = bt_cost(l_ftr, r_ftr, cfg.num_disparities, cfg.block_size, cost_bound)
-    S = sgbm_aggregate(C, cfg.p1, cfg.p2, cfg.num_directions)
+    # two uint16 group partials where the bound allows (S is never formed),
+    # else the int32 S as the only partial
+    parts = sgbm_aggregate_partials(C, cfg.p1, cfg.p2, cfg.num_directions, cost_bound)
     del C
-    disp16 = select_disparity(S, cfg.uniqueness_ratio, cfg.disp12_max_diff,
-                              cfg.min_disparity)
+    disp16 = select_disparity_partials(parts, cfg.uniqueness_ratio, cfg.disp12_max_diff,
+                                       cfg.min_disparity)
+    del parts
     if cfg.speckle_window_size > 0:
         disp16 = filter_speckles(
             disp16, cfg.speckle_window_size, DISP_SCALE * cfg.speckle_range,

@@ -52,6 +52,59 @@ def test_upsample_wta_kernel_matches_plain(dev, W):
     assert (got != K.upsample_wta_plain(g, maps)).float().mean() <= 2e-3
 
 
+WMF_CASES = [(9, 64), (9, 256), (4, 256), (3, 10), (0, 8)]
+
+
+def _wmf_guide(dev, shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, 256, (*shape, 3), dtype=np.uint8), device=dev)
+
+
+@pytest.mark.parametrize("radius,n_bins", WMF_CASES)
+@pytest.mark.parametrize("kind", ["random", "two_level", "beyond_bins"])
+@pytest.mark.parametrize("shape", [(2, 40, 70), (1, 5, 20), (1, 37, 101)],
+                         ids=["tiles", "below_a_tile", "ragged"])
+def test_weighted_median_kernel_is_bitwise_plain(dev, radius, n_bins, kind, shape):
+    """K3 sums every bin in the plain version's order: 0 pixels differ, on
+    full-range random disparities (every bin window, both sweeps), on a
+    two-level map (a flipped tie would move the median from 3 to 200), with
+    disparities >= n_bins (skipped by both), on an image smaller than one
+    32x8 tile and on one whose sides are no multiple of it."""
+    rng = np.random.default_rng(radius * 1000 + n_bins + shape[1])
+    if kind == "random":
+        disp = rng.integers(0, n_bins, shape, dtype=np.uint8)
+    elif kind == "two_level":
+        disp = np.where(rng.random(shape) < 0.5, 3, min(200, n_bins - 1)).astype(np.uint8)
+    else:
+        disp = rng.integers(0, 256, shape, dtype=np.uint8)    # some >= n_bins unless 256
+        disp[0, :3] = 255
+    disp = torch.as_tensor(disp, device=dev)
+    guide = _wmf_guide(dev, shape, n_bins)
+    K.reset_launches()
+    got = K.weighted_median(disp, guide, radius, n_bins, 25.5)
+    assert K.LAUNCHES["wmf"] == 1
+    assert torch.equal(got, K.weighted_median_plain(disp, guide, radius, n_bins, 25.5))
+
+
+def test_weighted_median_kernel_smooth_guide_and_flat_regions(dev):
+    """A smooth guide (heavy weights far from the centre, knife-edge halves)
+    on a piecewise-constant map with one block of outliers."""
+    yy, xx = np.mgrid[0:64, 0:96]
+    guide = np.stack([yy * 2, xx * 2, (yy + xx)], -1).astype(np.uint8)[None]
+    disp = np.where(xx < 48, 20, 180).astype(np.uint8)[None].copy()
+    disp[0, 10:14, 40:56] = 255
+    disp_t, guide_t = torch.as_tensor(disp, device=dev), torch.as_tensor(guide, device=dev)
+    for n_bins in (256, 200):
+        got = K.weighted_median(disp_t, guide_t, 9, n_bins, 25.5)
+        assert torch.equal(got, K.weighted_median_plain(disp_t, guide_t, 9, n_bins, 25.5))
+
+
+def test_weighted_median_kernel_refuses_a_tile_beyond_shared_memory(dev):
+    disp = torch.zeros((1, 16, 40), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.weighted_median(disp, _wmf_guide(dev, (1, 16, 40), 0), 120, 64, 25.5)
+
+
 @pytest.mark.parametrize("radius,n_bins", [(9, 64), (4, 256), (3, 10)])
 def test_weighted_median_kernel_matches_plain(dev, radius, n_bins):
     rng = np.random.default_rng(n_bins)
@@ -218,6 +271,68 @@ def test_sgbm_scan_kernel_matches_plain(dev, nd, H, W, D, dtype):
     assert torch.equal(got, K.sgbm_aggregate_plain(cost, 600, 2400, nd))
 
 
+@pytest.mark.parametrize("nd", [3, 5, 8])
+@pytest.mark.parametrize("D", [16, 64, 100, 256, 7])
+@pytest.mark.parametrize("dtype,p2", [(torch.int16, 2400), (torch.int16, 60000),
+                                      (torch.int32, 2400)],
+                         ids=["partials", "p2_beyond_the_bound", "int32_cost"])
+def test_sgbm_scan_partials_kernel_matches_plain(dev, nd, D, dtype, p2):
+    """K7's partials sum to the plain S bitwise: uint16 groups where
+    g * (cost_bound + p2) < 2**16 (2 launches, 1 for 3 directions), the
+    int32 S beyond it and for an int32 cost (a launch per family). D = 100
+    copies 8 bytes at a time, D = 7 takes the plain-load ring."""
+    rng = np.random.default_rng(D + nd)
+    H, W = (23, 37) if D > 64 else (31, 45)
+    cost = torch.as_tensor(rng.integers(0, 9451, (H, W, D)), dtype=dtype, device=dev)
+    narrow = K.partial_groups(nd, 9450, p2, dtype) is not None
+    assert narrow == (dtype == torch.int16 and p2 == 2400)
+    K.reset_launches()
+    parts = K.sgbm_aggregate_partials(cost, 600, p2, nd, 9450)
+    if narrow:
+        assert len(parts) == 2 and all(q.dtype == torch.uint16 for q in parts)
+        assert K.LAUNCHES["sgbm_scan"] == {3: 1, 5: 2, 8: 2}[nd]
+    else:
+        assert len(parts) == 1 and parts[0].dtype == torch.int32
+        assert K.LAUNCHES["sgbm_scan"] == {3: 2, 5: 4, 8: 4}[nd]
+    want = K.sgbm_aggregate_plain(cost, 600, p2, nd)
+    assert torch.equal(sum(q.int() for q in parts), want)
+    plain = K.sgbm_aggregate_partials_plain(cost, 600, p2, nd, 9450)
+    assert len(plain) == len(parts)
+    assert all(torch.equal(a, b) for a, b in zip(parts, plain))
+
+
+def test_sgbm_scan_partials_at_the_edge_of_uint16(dev):
+    """Costs at their bound and the largest P2 the rule allows: every L
+    reaches cost_bound + p2 somewhere and the groups of four still fit."""
+    bound = 9450
+    p2 = (2**16 - 1) // 4 - bound
+    assert K.partial_groups(8, bound, p2) is not None
+    assert K.partial_groups(8, bound, p2 + 1) is None
+    rng = np.random.default_rng(3)
+    cost = torch.as_tensor(rng.choice([0, bound], (40, 50, 32)), dtype=torch.int16, device=dev)
+    parts = K.sgbm_aggregate_partials(cost, 600, p2, 8, bound)
+    assert len(parts) == 2
+    assert torch.equal(sum(q.int() for q in parts), K.sgbm_aggregate_plain(cost, 600, p2, 8))
+
+
+@pytest.mark.parametrize("min_d", [-20, -3, 0, 7])
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("D", [16, 70])
+def test_select_kernel_from_partials_matches_plain(dev, min_d, n_parts, D):
+    """K8 adds one or two uint16 partials as it reads: bitwise the plain
+    selection on their int32 sum, and the int32 kernel on it."""
+    rng = np.random.default_rng(abs(min_d) + n_parts + D)
+    parts = tuple(torch.as_tensor(rng.integers(0, 47400, (21, 96, D)).astype(np.uint16),
+                                  device=dev) for _ in range(n_parts))
+    S = sum(q.int() for q in parts)
+    K.reset_launches()
+    got = K.select_disparity_partials(parts, 10, 1, min_d)
+    assert K.LAUNCHES["select"] == 1
+    assert torch.equal(got, K.select_disparity_plain(S, 10, 1, min_d))
+    assert torch.equal(got, K.select_disparity(S, 10, 1, min_d))
+    assert torch.equal(K.select_disparity_partials((S,), 10, 1, min_d), got)
+
+
 @pytest.mark.parametrize("min_d", [-20, -3, 0, 3, 7])
 @pytest.mark.parametrize("uniq,d12", [(10, 1), (0, 0), (10, -1)])
 def test_select_kernel_matches_plain(dev, min_d, uniq, d12):
@@ -258,4 +373,6 @@ def test_sgbm_forward_on_card_matches_cpu(dev, mode):
     assert got.device.type == "cuda" and got.dtype == torch.int16
     for name in ("bt_cost", "sgbm_scan", "select", "speckle"):
         assert K.LAUNCHES[name] >= 1, name
+    # the partials route: a path family of each group per launch
+    assert K.LAUNCHES["sgbm_scan"] == {"hh": 2, "sgbm": 2, "3way": 1}[mode]
     assert torch.equal(got.cpu(), stereo_sgbm_forward(left, right, cfg, device="cpu"))

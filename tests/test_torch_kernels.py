@@ -118,6 +118,64 @@ def test_joint_wmf_plain_matches_jax(radius, n_bins, pallas):
         assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
 
 
+@pytest.mark.parametrize("kind", ["two_level", "beyond_bins"])
+def test_joint_wmf_plain_special_maps_match_jax(kind):
+    """K3's plain version vs the JAX op on the maps the CUDA kernel's bin
+    windows are tested with on the card: a two-level map (3 and 200 of 256
+    bins) and a map with disparities >= n_bins, which add nothing in both
+    (the JAX op's one-hot matches no bin, the plain version gives them
+    weight 0). Tolerance: mismatch <= 1e-3 (last-ulp ties in the cumulative
+    sums, which XLA adds in another order). max |diff| <= 1 is asserted
+    only where neighbouring bins are occupied: on the two-level map a
+    flipped tie moves the median to the next occupied bin, 197 away. The
+    guide has low contrast, so no weight is subnormal (XLA may flush
+    those)."""
+    rng = np.random.default_rng(17)
+    H, W, radius = 32, 56, 4
+    guide = rng.integers(100, 140, (H, W, 3), dtype=np.uint8)
+    if kind == "two_level":
+        n_bins = 256
+        disp = np.where(rng.random((H, W)) < 0.5, 3, 200).astype(np.uint8)
+    else:
+        n_bins = 40
+        disp = rng.integers(0, 60, (H, W), dtype=np.uint8)      # a third >= n_bins
+        disp[:6, :20] = 255                                     # whole windows without a bin
+    got = joint_wmf(_t(disp), _t(guide), radius=radius, n_bins=n_bins).numpy()
+    ref = np.asarray(jax_joint_wmf(jnp.asarray(disp), jnp.asarray(guide), radius=radius,
+                                   n_bins=n_bins))
+    assert (got != ref).mean() <= 1e-3
+    if kind == "two_level":
+        assert set(np.unique(got)) <= {3, 200}
+    else:
+        assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+        assert got.max() < n_bins and (got[:2, :16] == 0).all()
+    # the wrapper takes this plain version for CPU tensors
+    wrapped = K.weighted_median(_t(disp)[None], _t(guide)[None], radius, n_bins, 25.5)
+    np.testing.assert_array_equal(wrapped[0].numpy(), got)
+
+
+def test_wmf_bin_window_passes_counts_the_kernels_sweeps():
+    """`bin_window_passes` counts, per 32x8 tile of the CUDA kernel, one pass
+    per window of NB bins between the least and greatest binned disparity of
+    the haloed tile, and one more where there are several."""
+    from primestereomatch_torch.kernels.wmf import NB, TILE_H, TILE_W, bin_window_passes
+
+    disp = torch.full((1, 2 * TILE_H, 3 * TILE_W), 250, dtype=torch.uint8)
+    assert bin_window_passes(disp, 3, 10).sum() == 0          # nothing has a bin
+    assert (bin_window_passes(disp, 3, 256) == 1).all()       # one level: one window
+    disp[0, 0, 0], disp[0, 0, 1] = 3, 200
+    got = bin_window_passes(disp, 3, 256)[0]
+    spans = (250 - 3) // NB + 1
+    assert got[0, 0] == spans + 1 and (got.flatten()[1:] == 1).all()
+    # the halo reaches into the next tile: radius 9 from column TILE_W + 5
+    disp[0, 0, 0], disp[0, 0, 1] = 250, 250
+    disp[0, 3, TILE_W + 5] = 250 - NB
+    got = bin_window_passes(disp, 9, 256)[0]
+    assert got[0].tolist() == [3, 3, 1] and got[1].tolist() == [3, 3, 1]
+    ragged = torch.zeros((2, TILE_H + 1, TILE_W - 3), dtype=torch.uint8)
+    assert tuple(bin_window_passes(ragged, 9, 64).shape) == (2, 2, 1)
+
+
 def test_joint_wmf_plain_constant_region():
     """Constant disparity under a constant guide is its own median, exactly."""
     disp = torch.full((16, 130), 7, dtype=torch.uint8)
@@ -137,7 +195,8 @@ def _wrapper_inputs():
 
 
 @pytest.mark.parametrize("name", ["lowmaps", "wta", "wmf", "bt_cost", "sgbm_scan", "select",
-                                  "speckle", "cvc_lowmaps", "cvc_wta"])
+                                  "speckle", "cvc_lowmaps", "cvc_wta", "sgbm_scan_partials",
+                                  "select_partials"])
 def test_wrappers_on_cpu_run_plain_and_count_nothing(name):
     """Given CPU tensors each wrapper returns its plain version's result and
     launches nothing."""
@@ -161,6 +220,18 @@ def test_wrappers_on_cpu_run_plain_and_count_nothing(name):
         got, want = K.sgbm_aggregate(S, 600, 2400), K.sgbm_aggregate_plain(S, 600, 2400)
     elif name == "select":
         got, want = K.select_disparity(S, 10, 1), K.select_disparity_plain(S, 10, 1)
+    elif name == "sgbm_scan_partials":
+        C = S.to(torch.int16)
+        parts = K.sgbm_aggregate_partials(C, 600, 2400, 8, 5000)
+        assert len(parts) == 2 and all(q.dtype == torch.uint16 for q in parts)
+        plain = K.sgbm_aggregate_partials_plain(C, 600, 2400, 8, 5000)
+        assert all(torch.equal(a, b) for a, b in zip(parts, plain))
+        got, want = sum(q.int() for q in parts), K.sgbm_aggregate_plain(C, 600, 2400)
+    elif name == "select_partials":
+        parts = ((S // 2).to(torch.uint16), (S - S // 2).to(torch.uint16))
+        got = K.select_disparity_partials(parts, 10, 1)
+        assert torch.equal(got, K.select_disparity_partials_plain(parts, 10, 1))
+        want = K.select_disparity_plain(S, 10, 1)
     elif name == "cvc_lowmaps":
         grd = g[..., 0].contiguous()
         got, want = K.cvc_low_maps(g, grd, stats, 8, 5), K.cvc_low_maps_plain(g, grd, stats, 8, 5)

@@ -119,6 +119,68 @@ def test_aggregate_matches_jax_and_pallas(nd):
 
 
 @pytest.mark.parametrize("nd", [3, 5, 8])
+def test_aggregate_partials_match_jax_and_pallas(nd):
+    """K7's main-path entry on the CPU: two uint16 group partials (the plain
+    version), each below 2**16 by the bound, whose sum is the JAX
+    `aggregate` and the sum of the Pallas kernel's partials."""
+    rng = np.random.default_rng(nd + 40)
+    H, W, D, bound = 22, 36, 16, 9450
+    C = rng.integers(0, bound + 1, (H, W, D)).astype(np.int32)
+    C[3:9, 5:20] = bound                      # L reaches cost_bound + p2 somewhere
+    cost = _t(C).to(torch.int16)
+    parts = K.sgbm_aggregate_partials(cost, 600, 2400, nd, bound)
+    assert len(parts) == 2 and all(q.dtype == torch.uint16 and q.shape == cost.shape
+                                   for q in parts)
+    plain = K.sgbm_aggregate_partials_plain(cost, 600, 2400, nd, bound)
+    assert all(torch.equal(a, b) for a, b in zip(parts, plain))
+    g = {8: 4, 5: 3, 3: 2}[nd]
+    assert max(int(q.int().max()) for q in parts) <= g * (bound + 2400) < 2**16
+    S = sum(q.int() for q in parts)
+    want = np.asarray(jops.aggregate(jnp.asarray(C), 600, 2400, nd, cost_bound=bound))
+    np.testing.assert_array_equal(S.numpy(), want)
+    np.testing.assert_array_equal(S.numpy(), ops.aggregate(cost, 600, 2400, nd).numpy())
+    jparts = sgbm_aggregate_partials_pallas(jnp.asarray(C), 600, 2400, nd, cost_bound=bound,
+                                            interpret=True)
+    Sj = sum(np.asarray(q)[:H, :, :W].astype(np.int64) for q in jparts)
+    np.testing.assert_array_equal(S.permute(0, 2, 1).numpy(), Sj)
+
+
+@pytest.mark.parametrize("nd", [3, 5, 8])
+def test_partial_groups_follow_the_bound(nd):
+    """uint16 partials exactly where g * (cost_bound + p2) < 2**16 for the
+    largest group of directions (4 of 8, 3 of 5, 2 of 3); the int32 S
+    beyond it, for an int32 cost and without a bound."""
+    g = {8: 4, 5: 3, 3: 2}[nd]
+    edge = (2**16 - 1) // g
+    for bound in (0, 100, 9450, 16000, 2**15 - 1, 2**15, 40000):
+        for p2 in (0, 96, 2400, edge - bound, edge - bound + 1, 2**16):
+            if p2 < 0:
+                continue
+            groups = K.partial_groups(nd, bound, p2)
+            assert (groups is not None) == (g * (bound + p2) < 2**16), (bound, p2)
+            if groups is not None:
+                fams = [f for grp in groups for f in grp]
+                assert len(groups) == 2 and len(set(fams)) == len(fams) == {8: 4, 5: 4, 3: 2}[nd]
+    assert K.partial_groups(nd, None, 2400) is None
+    assert K.partial_groups(nd, 9450, 2400, torch.int32) is None
+
+
+@pytest.mark.parametrize("why", ["p2_beyond_the_bound", "int32_cost", "no_bound"])
+def test_aggregate_partials_fall_back_to_int32(why):
+    rng = np.random.default_rng(8)
+    C = _t(rng.integers(0, 9451, (14, 20, 8)).astype(np.int32))
+    cost = C if why == "int32_cost" else C.to(torch.int16)
+    p2 = 2**16 if why == "p2_beyond_the_bound" else 2400
+    bound = None if why == "no_bound" else 9450
+    parts = K.sgbm_aggregate_partials(cost, 600, p2, 8, bound)
+    assert len(parts) == 1 and parts[0].dtype == torch.int32
+    want = np.asarray(jops.aggregate(jnp.asarray(C.numpy()), 600, p2, 8))
+    np.testing.assert_array_equal(parts[0].numpy(), want)
+    np.testing.assert_array_equal(K.select_disparity_partials(parts, 10, 1).numpy(),
+                                  K.select_disparity(parts[0], 10, 1).numpy())
+
+
+@pytest.mark.parametrize("nd", [3, 5, 8])
 def test_aggregate_matches_oracle(pair, nd):
     lf, rf = (oracle.sobel_xclip(i, CAP) for i in pair)
     C = oracle.block_cost(oracle.bt_cost(lf, rf, 8), 5)
@@ -142,6 +204,27 @@ def test_select_matches_jax(min_d, uniq, d12):
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jops.select_disparity(jnp.asarray(S), uniq, d12, min_d)))
     np.testing.assert_array_equal(K.select_disparity(_t(S), uniq, d12, min_d).numpy(), want)
+
+
+@pytest.mark.parametrize("min_d", [-20, -3, 0, 7])
+@pytest.mark.parametrize("n_parts", [1, 2])
+def test_select_partials_equals_select_of_sum(min_d, n_parts):
+    """K8's main-path entry on the CPU: the selection on one or two uint16
+    partials is the selection on their int32 sum, which is the JAX op's."""
+    rng = np.random.default_rng(30 + min_d + n_parts)
+    parts = tuple(_t(rng.integers(0, 47400, (18, 80, 16)).astype(np.uint16))
+                  for _ in range(n_parts))
+    S = sum(q.int() for q in parts)
+    got = K.select_disparity_partials(parts, 10, 1, min_d)
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), K.select_disparity(S, 10, 1, min_d).numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jops.select_disparity(jnp.asarray(S.numpy()), 10, 1, min_d)))
+    if min_d >= 0:
+        jparts = tuple(jnp.asarray(q.numpy().transpose(0, 2, 1)) for q in parts)
+        pallas = select_disparity_partials_pallas(jparts, (18, 80), 10, 1, min_d,
+                                                  interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
 
 
 @pytest.mark.parametrize("min_d,uniq,d12", [(0, 10, 1), (0, 0, -1), (3, 10, 1), (7, 10, 0)])
@@ -249,6 +332,27 @@ def test_forward_matches_jax_and_oracle(pair, mode):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("mode", ["hh", "sgbm", "3way"])
+def test_forward_partials_route_equals_the_int32_route(pair, mode):
+    """The pipeline goes through the partials entries; its output is that of
+    the same stages through the int32 S, and a P2 beyond the uint16 bound
+    (the int32 fallback inside the partials entry) still equals JAX."""
+    cfg = SGBMConfig(num_disparities=8, p1=24, p2=96, speckle_window_size=10, mode=mode)
+    got = stereo_sgbm_forward(*pair, cfg, device="cpu")
+    lf, rf = (ops.sobel_xclip(_t(i), CAP) for i in pair)
+    bound = 25 * 3 * 2 * CAP
+    cost = K.bt_cost(lf, rf, 8, 5, bound)
+    assert K.partial_groups(cfg.num_directions, bound, cfg.p2) is not None
+    S = K.sgbm_aggregate(cost, cfg.p1, cfg.p2, cfg.num_directions)
+    want = ops.filter_speckles(K.select_disparity(S, 10, 1, 0), 10, 32, -16)
+    assert torch.equal(got, want)
+    kw = dict(num_disparities=8, p1=24, p2=2**16, speckle_window_size=10, mode=mode)
+    assert K.partial_groups(cfg.num_directions, bound, 2**16) is None
+    wide = stereo_sgbm_forward(*pair, SGBMConfig(**kw), device="cpu")
+    np.testing.assert_array_equal(
+        wide.numpy(), np.asarray(jax_forward(*map(jnp.asarray, pair), JaxSGBMConfig(**kw))))
+
+
 @pytest.mark.parametrize("mode,min_d", [("hh", 0), ("3way", 4)])
 def test_teddy_crop_matches_jax(mode, min_d):
     s = jax_load("Teddy")
@@ -350,6 +454,19 @@ def test_sgbm_wrappers_reject_what_the_kernels_do_not_take():
         K.select_disparity(S.to(torch.int16), 10, 1)
     with pytest.raises(ValueError):
         K.select_disparity(S[0], 10, 1)
+    with pytest.raises(TypeError):
+        K.sgbm_aggregate_partials(S.float(), 8, 32, 8, 100)
+    with pytest.raises(ValueError):
+        K.sgbm_aggregate_partials(S, 8, 32, 4, 100)
+    u16 = S.to(torch.uint16)
+    with pytest.raises(ValueError):
+        K.select_disparity_partials((u16, u16, u16), 10, 1)
+    with pytest.raises(ValueError):
+        K.select_disparity_partials((u16, u16[:, :-1]), 10, 1)
+    with pytest.raises(TypeError):
+        K.select_disparity_partials((u16, S), 10, 1)
+    with pytest.raises(TypeError):
+        K.select_disparity_partials((S.to(torch.int16),), 10, 1)
     with pytest.raises(TypeError):
         K.segmin_sweep(S[..., 0], S[..., 0], 1)
     with pytest.raises(ValueError):
