@@ -12,8 +12,11 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      the same CUDA tensors: GIF K1-K3 at the Teddy shapes (D=64, 375x450,
      maps 93x112) and the 2K shapes (D=256, 1242x2208, maps 310x552); K1 and
      K2 also at subsample=1 on Teddy (a 17x17 box, maps at full resolution,
-     upsampling ratio 1: the TPU's generic-ratio kernel K5); K4 (cost +
-     low-maps, bitwise expected) and K10 (cost + chain + WTA, also against
+     upsampling ratio 1: the TPU's generic-ratio kernel K5), K2 also at
+     D=3 on the Teddy shape (a chunk of 8 disparities that is not filled;
+     0 pixels required); K4 (cost + low-maps, bitwise expected; at 2K also
+     at D=100, which its 16 disparities a block do not divide, 0 values
+     required) and K10 (cost + chain + WTA, also against
      K4 -> K2 on the card, 0 differing pixels expected) at a seeded ZED-VGA
      pair (376x672, D=64) and the 2K pair; K3 at 2K on two inputs, the WTA
      output and uniformly random disparities over all 256 bins (the most
@@ -41,7 +44,10 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
   5. times with CUDA events (3 warm-up, 20 timed launches; 1 and 2 for
      the slow SGBM plain versions at 2K, 1 and 3 for the fused tails' plain
      versions at 2K; K3's plain version on the random 2K input runs once)
-     of each kernel and its plain version, K3's bin-window passes per block,
+     of each kernel and its plain version, K2's and K4's launch shapes
+     (tile, chunk, shared memory, ptxas registers) and their times at 2K
+     in a few shapes that were tried and rejected (tune_gif_tail.py builds
+     and times them), K3's bin-window passes per block,
      K7's bytes per (pixel, d) by its own count, the rate that follows,
      its time at four ring sizes and on 8 image rows alone, end-to-end frame
      times (host clock, synchronised; 10 frames for the 2K GIF paths), a
@@ -69,8 +75,10 @@ import numpy as np
 import torch
 
 import primestereomatch_torch as psm
+import tune_gif_tail as tune
 from primestereomatch_torch import kernels as K
-from primestereomatch_torch.kernels import _build, sgbm_scan
+from primestereomatch_torch.kernels import _build, cvc_lowmaps, sgbm_scan
+from primestereomatch_torch.kernels import wta as wta_mod
 from primestereomatch_torch.models.gif_pipeline import _to_u8, stacked_views
 from primestereomatch_torch.ops import sgbm as sgbm_ops
 from primestereomatch_torch.ops.cost_volume import sampled_cost_volumes
@@ -319,6 +327,31 @@ def parity(name: str, cfg, left, right, dev, report, with_wmf: bool = True):
         f"({row['wta']['n_differ']} px) max|diff|={row['wta']['max_abs_err']} (bound 2e-3)")
     if frac > 2e-3 or int(disp_k.min()) < 1:
         raise AssertionError(f"upsample_wta disagrees with its plain version at {name}")
+    win = wta_mod.staged_window(h, w, H, W)
+    row["wta"]["design"] = {"kernel": "per-pixel"} if win is None else {
+        "kernel": "staged", "tile": [wta_mod.TILE_X, wta_mod.TILE_Y], "chunk": wta_mod.D_CHUNK,
+        "window": list(win), "smem_bytes": wta_mod.staged_smem_bytes(*win),
+        **tune.resources(_build.BUILD_LOGS["wta"])}
+    log(f"design {name} upsample_wta: {row['wta']['design']}")
+    if name == "teddy":
+        # D = 3: one chunk of 8 disparities, a quarter filled
+        maps3 = maps_p[:, :, :3].contiguous()
+        n3 = int((K.upsample_wta(g2, maps3) != K.upsample_wta_plain(g2, maps3)).sum())
+        row["wta"]["n_differ_d3"] = n3
+        log(f"parity {name} upsample_wta at D=3: {n3} px differ (0 required)")
+        if n3:
+            raise AssertionError("upsample_wta at D=3 is not bitwise its plain version")
+    if D > 64:
+        # shapes tried and rejected: the next chunk's copies in flight; four
+        # pixels of a row per thread from three columns picked by selects
+        tried = tune.wta_variant_ms(g2, maps_p, [(16, 8, 1, 2, 2, 3), (16, 8, 4, 3, 1, 3),
+                                                 (32, 4, 1, 2, 1, 3)])
+        row["wta"]["design"]["rejected_ms"] = {
+            "two_stages": tried[(16, 8, 1, 2, 2, 3)],
+            "four_pixels_a_thread": tried[(16, 8, 4, 3, 1, 3)],
+            "tile_64x32_chunk_4": tried[(32, 4, 1, 2, 1, 3)]}
+        log(f"tried {name} upsample_wta (bitwise the shipped kernel): "
+            f"{row['wta']['design']['rejected_ms']} ms")
 
     timing = {
         "lowmaps": (lambda: K.low_maps(p2, stats, k),
@@ -399,6 +432,36 @@ def fused_parity(name: str, cfg, left, right, dev, report):
     if not tol_ok:
         raise AssertionError(f"cvc_lowmaps disagrees with its plain version at {name}")
     del maps_p, err
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk, grid = cvc_lowmaps.plan_chunks(B2, D, H // s, W // s, k, sms)
+    row["cvc_lowmaps"]["design"] = {
+        "tile": [cvc_lowmaps.TILE] * 2, "chunk": chunk, "grid": list(grid),
+        "smem_bytes": cvc_lowmaps.smem_bytes(k),
+        **tune.resources(_build.BUILD_LOGS["cvc_lowmaps"])}
+    log(f"design {name} cvc_lowmaps: {row['cvc_lowmaps']['design']}")
+    if D > 64:
+        # D = 100: the 16 disparities a block takes do not divide it
+        d_odd = 100
+        odd_chunk, _ = cvc_lowmaps.plan_chunks(B2, d_odd, H // s, W // s, k, sms)
+        n_odd = int((K.cvc_low_maps(views, grds, stats, d_odd, k, **cost)
+                     != K.cvc_low_maps_plain(views, grds, stats, d_odd, k, **cost)).sum())
+        row["cvc_lowmaps"]["n_differ_d100"] = n_odd
+        log(f"parity {name} cvc_lowmaps at D={d_odd} (chunks of {odd_chunk}): {n_odd} values "
+            f"differ (0 required)")
+        if n_odd or d_odd % odd_chunk == 0:
+            raise AssertionError("cvc_lowmaps at a D its chunk does not divide is not bitwise "
+                                 "its plain version")
+        # shapes tried and rejected: one disparity a block, samples gathered
+        # per disparity, one output per thread along the box axis, 256 threads
+        tried = tune.k4_variant_ms(views, grds, stats, D, k, cost,
+                                   [(4, 1, 512), (4, 0, 512), (1, 1, 512), (4, 1, 256)], (1,))
+        row["cvc_lowmaps"]["design"]["rejected_ms"] = {
+            "one_disparity_a_block": tried[((4, 1, 512), 1)],
+            "samples_not_staged": tried[((4, 0, 512), chunk)],
+            "one_output_a_thread": tried[((1, 1, 512), chunk)],
+            "256_threads_a_block": tried[((4, 1, 256), chunk)]}
+        log(f"tried {name} cvc_lowmaps (bitwise the shipped kernel): "
+            f"{row['cvc_lowmaps']['design']['rejected_ms']} ms")
 
     disp_k = K.cvc_wta(views, grds, stats, D, k, **cost)
     disp_2 = K.upsample_wta(views, maps_k)
@@ -635,12 +698,10 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    secs = K.build()
-    log(f"build: {secs:.1f} s for {len(_build.NAMES)} kernels (nvcc in parallel)")
+    build_secs = K.build()
+    log(f"build: {build_secs:.1f} s for {len(_build.NAMES)} kernels (nvcc in parallel)")
     for n, text in _build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"ptxas {n}: {line.strip()}")
+        log(f"ptxas {n}: at most {tune.resources(text)} over its kernels")
 
     cfg = psm.GIFConfig()
     cfg2k = psm.GIFConfig(max_dis=256)
@@ -822,6 +883,7 @@ def main() -> int:
     # the longer kernel names first: "lowmaps_kernel" is part of "cvc_lowmaps_kernel"
     gif_tags = {"cvc_lowmaps_kernel": "cvc_lowmaps", "cvc_wta_kernel": "cvc_wta",
                 "lowmaps_kernel": "lowmaps", "upsample_wta_kernel": "wta",
+                "upsample_wta_staged_kernel": "wta",
                 "joint_wmf_kernel": "wmf", "wmf_weights_kernel": "wmf"}
     sgbm_tags = {"bt_row_kernel": "bt_cost", "bt_col_kernel": "bt_cost",
                  "sgm_scan_kernel": "sgbm_scan", "select_kernel": "select",
@@ -883,6 +945,8 @@ def main() -> int:
             "mismatch": {first: t.get("mismatch", t["n_differ"] / t["n"]),
                          "2k": k2.get("mismatch", k2["n_differ"] / k2["n"])},
         }
+        if "design" in t:
+            row["design"] = {first: t["design"], "2k": k2["design"]}
         if kname in ("lowmaps", "wta"):
             # Teddy at subsample=1: a 17x17 box, and the upsampling ratio 1 that
             # the TPU serves with its generic-ratio kernel
@@ -913,7 +977,8 @@ def main() -> int:
         "e2e": e2e, "medians_2k": med2k, "full_vs_maps_2k": full_vs_maps,
         "sgbm_quality": sgbm_q, "sgbm_per_frame": sper_frame, "sgbm_medians_2k": smed2k,
         "peak_gib": peak,
-        "build_logs": _build.BUILD_LOGS, "seconds": time.perf_counter() - t_start,
+        "build_logs": _build.BUILD_LOGS, "build_seconds": build_secs,
+        "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -69,6 +69,7 @@ inline size_t smem_floats(int lth, int ltw, int k) {
   return fgf::chain_floats(lth, ltw, k) + 4 * (size_t)lth * ltw + 6 * nb;
 }
 
+template <int K>
 __global__ void __launch_bounds__(NTHREADS)
 cvc_wta_kernel(const float* __restrict__ views, const float* __restrict__ grds,
                const float* __restrict__ stats, const int* __restrict__ yi,
@@ -77,7 +78,7 @@ cvc_wta_kernel(const float* __restrict__ views, const float* __restrict__ grds,
                const float* __restrict__ lxf, uint8_t* __restrict__ out, int B,
                int D, int H, int W, int h, int w, int k, float inv_k2, int lth,
                int ltw, fgf::CostParams cp) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ int s_r0[OT], s_r1[OT];    // tap rows of each output row, x ltw
   __shared__ float s_fy[OT];
 
@@ -155,8 +156,8 @@ cvc_wta_kernel(const float* __restrict__ views, const float* __restrict__ grds,
                                         is_left, W, cp);
       fgf::band_store(smem, lth, ltw, k, i, p, a[0], a[1], a[2]);
     }
-    fgf::chain<NTHREADS>(smem, st, h, w, k, inv_k2, lth, ltw, ylo, xlo, oh, ow,
-                         tid, store);
+    fgf::chain<NTHREADS, K>(smem, st, h, w, k, inv_k2, lth, ltw, ylo, xlo, oh, ow,
+                            tid, store);
     __syncthreads();   // the map tiles are whole; the band may be refilled
 
 #pragma unroll
@@ -184,10 +185,27 @@ cvc_wta_kernel(const float* __restrict__ views, const float* __restrict__ grds,
   }
 }
 
+template <int K>
+int launch(const float* views, const float* grds, const float* stats, const int* yi,
+           const int* xi, const int* ly0, const float* lyf, const int* lx0,
+           const float* lxf, uint8_t* out, int B, int D, int H, int W, int h, int w,
+           int k, float inv_k2, int lth, int ltw, fgf::CostParams cp, size_t smem,
+           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      cvc_wta_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + OT - 1) / OT, (H + OT - 1) / OT, 2 * B);
+  cvc_wta_kernel<K><<<grid, NTHREADS, smem, stream>>>(
+      views, grds, stats, yi, xi, ly0, lyf, lx0, lxf, out, B, D, H, W, h, w, k,
+      inv_k2, lth, ltw, cp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns -1, launching nothing, when a tile needs more dynamic shared
-// memory than the card allows a block (227 KB on Hopper).
+// memory than the card allows a block (227 KB on Hopper). The chain's box
+// size is a template argument for k = 3, 5, 9 and 17.
 extern "C" int psm_cvc_wta(const float* views, const float* grds,
                            const float* stats, const int* yi, const int* xi,
                            const int* ly0, const float* lyf, const int* lx0,
@@ -202,13 +220,17 @@ extern "C" int psm_cvc_wta(const float* views, const float* grds,
     err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
   if (smem + sizeof(int) * 3 * OT > (size_t)limit) return -1;
-  err = cudaFuncSetAttribute(
-      cvc_wta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const fgf::CostParams cp{alpha, one_minus_alpha, border, tau1, tau2};
-  dim3 grid((W + OT - 1) / OT, (H + OT - 1) / OT, 2 * B);
-  cvc_wta_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      views, grds, stats, yi, xi, ly0, lyf, lx0, lxf, out, B, D, H, W, h, w, k,
-      inv_k2, lth, ltw, cp);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+#define PSM_CVC_WTA_LAUNCH(K)                                                      \
+  return launch<K>(views, grds, stats, yi, xi, ly0, lyf, lx0, lxf, out, B, D, H, W, \
+                   h, w, k, inv_k2, lth, ltw, cp, smem, s)
+  switch (k) {
+    case 3: PSM_CVC_WTA_LAUNCH(3);
+    case 5: PSM_CVC_WTA_LAUNCH(5);
+    case 9: PSM_CVC_WTA_LAUNCH(9);
+    case 17: PSM_CVC_WTA_LAUNCH(17);
+    default: PSM_CVC_WTA_LAUNCH(0);
+  }
+#undef PSM_CVC_WTA_LAUNCH
 }

@@ -4,26 +4,53 @@
 //
 // A block owns an output tile of up to th x tw low-res pixels at (y0, x0)
 // and a band of shared memory around it: M = 2 * (k / 2) more pixels on
-// each side. The caller fills the band's four planes (p, ch0 * p, ch1 * p,
-// ch2 * p) with `band_index` / `band_store`; `chain` then computes box(p)
-// and box(ch_c * p), the covariance, (a_r, a_g, a_b, b) through the
+// each side, one float4 (p, ch0 * p, ch1 * p, ch2 * p) per entry. The
+// caller fills it with `band_index` / `band_store`; `chain` then computes
+// box(p) and box(ch_c * p), the covariance, (a_r, a_g, a_b, b) through the
 // symmetric inverse, and a box average of each map again, and hands every
 // finished value to `emit(c, ty, tx, value)`.
+//
+// What the design does about the card: the four box passes are bound by
+// shared-memory loads and instruction throughput, not by device memory.
+//   * The four planes of an entry are one float4, so a tap is one 128-bit
+//     load. Band entry i holds the reflect-101 padded plane at (y0 - M +
+//     i / bw, x0 - M + i % bw), so the taps of an in-image pixel lie at
+//     constant offsets: no reflection and no multiply per tap. A
+//     first-level map whose pixel lies outside the image is the map of the
+//     reflected in-image pixel: the thread that computes that pixel's map
+//     also stores it at its mirror positions (a tile that lies inside the
+//     image has none and skips the test).
+//   * The box size is a template argument K (3, 5, 9, 17 = subsample 8, 4,
+//     2, 1 at gif_radius 8; K = 0 takes any k at run time), so the tap
+//     loops unroll. In the two vertical passes a thread produces RV
+//     consecutive outputs along the box axis from K + RV - 1 taps held in
+//     registers: each output still adds its own K taps from the first in
+//     order, but the loads per output fall from K to (K + RV - 1) / RV (5
+//     where there were 17 at K = 17). In the two horizontal passes
+//     neighbouring threads take neighbouring columns (conflict-free
+//     128-bit loads, coalesced statistic reads and map writes).
 //
 // Numerics follow ops/guided_filter.py step for step: every box sums its k
 // taps in order, rows first and then columns, and scales by 1 / (k * k);
 // the solve keeps the plain version's term order. Built with -fmad=false,
 // the maps agree with the plain version bit for bit, whatever the tiling:
 // each value is a fixed-order sum of values that depend on their position
-// only. Band entries and first-level maps at halo positions are those of
-// the reflected in-image pixel, so both boxes see exactly the reflect-101
-// padding the plain version applies (to the cost, then to the maps).
+// only.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "fastdiv.cuh"
+
 namespace fgf {
+
+// Outputs a thread produces along the box axis in the vertical passes;
+// kernels/lowmaps.py mirrors the default (RUN).
+#ifndef PSM_FGF_RV
+#define PSM_FGF_RV 4
+#endif
+constexpr int RV = PSM_FGF_RV;
 
 __device__ __forceinline__ int refl(int i, int n) {
   // reflect-101 for indices within one period of the axis
@@ -36,16 +63,22 @@ __device__ __forceinline__ int clampi(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
+__device__ __forceinline__ float4 add4(const float4 a, const float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
 // Floats of shared memory the chain needs for tiles of th x tw and k x k
-// boxes: the band, the row sums and the first-level maps, 4 planes each.
+// boxes: the band, the row sums and the first-level maps, one float4 per
+// entry; RV - 1 more rows of maps that the last vertical run reads past
+// its outputs and drops.
 __host__ __device__ inline size_t chain_floats(int th, int tw, int k) {
   const int M = 2 * (k / 2);
   const size_t bh = th + 2 * M, bw = tw + 2 * M, mh = th + M, mw = tw + M;
-  return 4 * (bh * bw + mh * bw + mh * mw);
+  return 4 * (bh * bw + mh * bw + (mh + RV - 1) * mw);
 }
 
 // Band entry i -> the in-image low-res pixel whose values it holds. The
-// entries the chain addresses lie within one reflection of the image; the
+// entries the chain uses lie within one reflection of the image; the
 // clamp only keeps the others' reads in bounds.
 __device__ __forceinline__ void band_index(int i, int tw, int k, int y0, int x0,
                                            int h, int w, int* iy, int* ix) {
@@ -58,101 +91,150 @@ __device__ __forceinline__ void band_index(int i, int tw, int k, int y0, int x0,
 __device__ __forceinline__ void band_store(float* band, int th, int tw, int k,
                                            int i, float p, float c0, float c1,
                                            float c2) {
-  const int M = 2 * (k / 2);
-  const int n = (th + 2 * M) * (tw + 2 * M);
-  band[i] = p;
-  band[n + i] = c0 * p;
-  band[2 * n + i] = c1 * p;
-  band[3 * n + i] = c2 * p;
+  reinterpret_cast<float4*>(band)[i] = make_float4(p, c0 * p, c1 * p, c2 * p);
+}
+
+// out[j] = src[j * stride] + src[(j + 1) * stride] + ... : k taps, added
+// in order from the first, for R consecutive outputs. With K at compile
+// time the K + R - 1 taps are loaded once into registers.
+template <int K, int R>
+__device__ __forceinline__ void run_sums(const float4* src, int stride, int k,
+                                         float4 (&out)[R]) {
+  if constexpr (K > 0) {
+    float4 t[K + R - 1];
+#pragma unroll
+    for (int i = 0; i < K + R - 1; ++i) t[i] = src[i * stride];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float4 s = t[j];
+#pragma unroll
+      for (int i = 1; i < K; ++i) s = add4(s, t[j + i]);
+      out[j] = s;
+    }
+  } else {
+    static_assert(K > 0 || R == 1, "the run-time box takes one output at a time");
+    float4 s = src[0];
+    for (int i = 1; i < k; ++i) s = add4(s, src[i * stride]);
+    out[0] = s;
+  }
 }
 
 // The chain over a filled band. `smem` is the block's chain_floats(th, tw,
-// k) floats, the band first; `st` the view's 12 statistic planes (h x w
-// each: channels, box means, inverse covariance rr rg rb gg gb bb); (oh, ow)
-// the part of the tile that holds outputs. Every thread of the block calls
-// it; it synchronises before it reads the band and between its steps, not
-// after the last `emit`.
-template <int NT, class Emit>
+// k) floats (16-byte aligned), the band first; `st` the view's 12
+// statistic planes (h x w each: channels, box means, inverse covariance rr
+// rg rb gg gb bb); (oh, ow) the part of the tile that holds outputs. K is
+// the box size at compile time, or 0 for the run-time `k`. Every thread of
+// the block calls it; it synchronises before it reads the band and between
+// its steps, not after the last `emit` (which reads where the band lay).
+template <int NT, int K, class Emit>
 __device__ __forceinline__ void chain(float* smem, const float* __restrict__ st,
                                       int h, int w, int k, float inv_k2, int th,
                                       int tw, int y0, int x0, int oh, int ow,
                                       int tid, Emit emit) {
-  const int m1 = k / 2;
+  constexpr int R = K > 0 ? RV : 1;
+  const int kk = K > 0 ? K : k;
+  const int m1 = kk / 2;
   const int M = 2 * m1;
-  const int bh = th + 2 * M, bw = tw + 2 * M;  // input band
+  const int bh = th + 2 * M, bw = tw + 2 * M;    // input band
   const int mh = th + 2 * m1, mw = tw + 2 * m1;  // first-level maps
-  float* band = smem;                 // 4 planes bh x bw
-  float* rs = band + 4 * bh * bw;     // 4 planes mh x bw: row sums
-  float* mid = rs + 4 * mh * bw;      // 4 planes mh x mw: a_r a_g a_b b
-  float* rs2 = band;                  // 4 planes th x mw: second row sums (reuses band)
+  float4* band = reinterpret_cast<float4*>(smem);  // bh x bw
+  float4* rs = band + bh * bw;      // mh x bw: sums over the band's rows
+  float4* mid = rs + mh * bw;       // (mh + RV - 1) x mw: a_r a_g a_b b
+  float4* rs2 = band;               // th x mw: sums over mid's rows (where the band lay)
   const size_t hw = (size_t)h * w;
   const int nmh = oh + 2 * m1, nmw = ow + 2 * m1;
-  const int by0 = y0 - M, bx0 = x0 - M;
+  const int nbw = ow + 2 * M;       // band columns in use
+  const int my0 = y0 - m1, mx0 = x0 - m1;   // pixel of mid entry (0, 0)
+  // the mid rows and columns whose pixel lies in the image
+  const int ra = max(0, -my0), rb = min(nmh, h - my0);
+  const int qa = max(0, -mx0), qb = min(nmw, w - mx0);
+  const int nr = rb - ra, nq = qb - qa;
+  const bool edge = nr < nmh || nq < nmw;   // some mid entries lie outside the image
   __syncthreads();
 
-  // row sums for first-level map rows cy = refl(y0 - m1 + r)
-  for (int i = tid; i < nmh * bw; i += NT) {
-    const int r = i / bw, jx = i % bw;
-    const int cy = refl(y0 - m1 + r, h);
-    for (int c = 0; c < 4; ++c) {
-      const float* pl = band + c * bh * bw + jx;
-      float s = pl[(refl(cy - m1, h) - by0) * bw];
-      for (int t = 1; t < k; ++t) s = s + pl[(refl(cy - m1 + t, h) - by0) * bw];
-      rs[c * mh * bw + r * bw + jx] = s;
+  // sums over k band rows, for the in-image mid rows: R rows a thread
+  {
+    const FastDiv by_nbw(nbw);
+    const int items = ((nr + R - 1) / R) * nbw;
+    for (int it = tid; it < items; it += NT) {
+      const int g = by_nbw.div(it), jx = it - g * nbw;
+      const int r0 = ra + g * R;
+      float4 s[R];
+      run_sums<K, R>(band + r0 * bw + jx, bw, kk, s);
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        if (r0 + j < rb) rs[(r0 + j) * bw + jx] = s[j];
     }
   }
   __syncthreads();
 
-  // first-level maps at (refl(y0 - m1 + r), refl(x0 - m1 + q))
-  for (int i = tid; i < nmh * nmw; i += NT) {
-    const int r = i / nmw, q = i % nmw;
-    const int cy = refl(y0 - m1 + r, h), cx = refl(x0 - m1 + q, w);
-    float box[4];
-    for (int c = 0; c < 4; ++c) {
-      const float* row = rs + c * mh * bw + r * bw;
-      float s = row[refl(cx - m1, w) - bx0];
-      for (int t = 1; t < k; ++t) s = s + row[refl(cx - m1 + t, w) - bx0];
-      box[c] = s * inv_k2;
-    }
-    const size_t o = (size_t)cy * w + cx;
-    const float mr = st[3 * hw + o], mg = st[4 * hw + o], mb = st[5 * hw + o];
-    const float irr = st[6 * hw + o], irg = st[7 * hw + o], irb = st[8 * hw + o];
-    const float igg = st[9 * hw + o], igb = st[10 * hw + o], ibb = st[11 * hw + o];
-    const float mp = box[0];
-    const float cov0 = box[1] - mr * mp;
-    const float cov1 = box[2] - mg * mp;
-    const float cov2 = box[3] - mb * mp;
-    const float a_r = irr * cov0 + irg * cov1 + irb * cov2;
-    const float a_g = irg * cov0 + igg * cov1 + igb * cov2;
-    const float a_b = irb * cov0 + igb * cov1 + ibb * cov2;
-    const float bb = mp - a_r * mr - a_g * mg - a_b * mb;
-    const int m = r * mw + q;
-    mid[m] = a_r;
-    mid[mh * mw + m] = a_g;
-    mid[2 * mh * mw + m] = a_b;
-    mid[3 * mh * mw + m] = bb;
-  }
-  __syncthreads();
-
-  // second box, valid over the first-level tile: rows then columns
-  for (int i = tid; i < oh * nmw; i += NT) {
-    const int ty = i / nmw, q = i % nmw;
-    for (int c = 0; c < 4; ++c) {
-      const float* col = mid + c * mh * mw + ty * mw + q;
-      float s = col[0];
-      for (int t = 1; t < k; ++t) s = s + col[t * mw];
-      rs2[c * th * mw + ty * mw + q] = s;
+  // first-level maps at the in-image pixels (my0 + r, mx0 + q), each stored
+  // at its own entry and at the entries that reflect onto it
+  {
+    const FastDiv by_nq(nq);
+    for (int it = tid; it < nr * nq; it += NT) {
+      const int rr = by_nq.div(it);
+      const int r = ra + rr, q = qa + it - rr * nq;
+      float4 s[1];
+      run_sums<K, 1>(rs + r * bw + q, 1, kk, s);
+      const int cy = my0 + r, cx = mx0 + q;
+      const size_t o = (size_t)cy * w + cx;
+      const float mr = st[3 * hw + o], mg = st[4 * hw + o], mb = st[5 * hw + o];
+      const float irr = st[6 * hw + o], irg = st[7 * hw + o], irb = st[8 * hw + o];
+      const float igg = st[9 * hw + o], igb = st[10 * hw + o], ibb = st[11 * hw + o];
+      const float mp = s[0].x * inv_k2;
+      const float cov0 = s[0].y * inv_k2 - mr * mp;
+      const float cov1 = s[0].z * inv_k2 - mg * mp;
+      const float cov2 = s[0].w * inv_k2 - mb * mp;
+      const float a_r = irr * cov0 + irg * cov1 + irb * cov2;
+      const float a_g = irg * cov0 + igg * cov1 + igb * cov2;
+      const float a_b = irb * cov0 + igb * cov1 + ibb * cov2;
+      const float bb = mp - a_r * mr - a_g * mg - a_b * mb;
+      const float4 m = make_float4(a_r, a_g, a_b, bb);
+      if (!edge) {
+        mid[r * mw + q] = m;
+        continue;
+      }
+      // mirrors across the image's first and last row and column
+      const int rows[3] = {r, -cy - my0, 2 * h - 2 - cy - my0};
+      const int cols[3] = {q, -cx - mx0, 2 * w - 2 - cx - mx0};
+      const bool rok[3] = {true, cy >= 1 && rows[1] >= 0, cy <= h - 2 && rows[2] < nmh};
+      const bool cok[3] = {true, cx >= 1 && cols[1] >= 0, cx <= w - 2 && cols[2] < nmw};
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          if (rok[a] && cok[b]) mid[rows[a] * mw + cols[b]] = m;
     }
   }
   __syncthreads();
 
-  for (int i = tid; i < oh * ow; i += NT) {
-    const int ty = i / ow, tx = i % ow;
-    for (int c = 0; c < 4; ++c) {
-      const float* row = rs2 + c * th * mw + ty * mw + tx;
-      float s = row[0];
-      for (int t = 1; t < k; ++t) s = s + row[t];
-      emit(c, ty, tx, s * inv_k2);
+  // second box over the maps: sums over k mid rows, R rows a thread
+  {
+    const FastDiv by_nmw(nmw);
+    const int items = ((oh + R - 1) / R) * nmw;
+    for (int it = tid; it < items; it += NT) {
+      const int g = by_nmw.div(it), q = it - g * nmw;
+      const int ty0 = g * R;
+      float4 s[R];
+      run_sums<K, R>(mid + ty0 * mw + q, mw, kk, s);
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        if (ty0 + j < oh) rs2[(ty0 + j) * mw + q] = s[j];
+    }
+  }
+  __syncthreads();
+
+  {
+    const FastDiv by_ow(ow);
+    for (int it = tid; it < oh * ow; it += NT) {
+      const int ty = by_ow.div(it), tx = it - ty * ow;
+      float4 s[1];
+      run_sums<K, 1>(rs2 + ty * mw + tx, 1, kk, s);
+      emit(0, ty, tx, s[0].x * inv_k2);
+      emit(1, ty, tx, s[0].y * inv_k2);
+      emit(2, ty, tx, s[0].z * inv_k2);
+      emit(3, ty, tx, s[0].w * inv_k2);
     }
   }
 }

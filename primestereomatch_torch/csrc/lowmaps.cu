@@ -40,11 +40,13 @@ struct StoreMaps {
   }
 };
 
+template <int K>
 __global__ void __launch_bounds__(NTHREADS)
 lowmaps_kernel(const float* __restrict__ p, const float* __restrict__ stats,
                float* __restrict__ out, int D, int h, int w, int k,
                float inv_k2) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
+  const int kk = K > 0 ? K : k;       // the box size, at compile time where K is
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
   const int bd = blockIdx.z;          // b * D + d
   const int b = bd / D;
@@ -52,33 +54,47 @@ lowmaps_kernel(const float* __restrict__ p, const float* __restrict__ stats,
   const float* ps = p + (size_t)bd * hw;
   const float* st = stats + (size_t)b * 12 * hw;
   const int tid = threadIdx.x;
-  const int M = 2 * (k / 2);
+  const int M = 2 * (kk / 2);
 
   // band of p and ch_c * p
   for (int i = tid; i < (TH + 2 * M) * (TW + 2 * M); i += NTHREADS) {
     int iy, ix;
-    fgf::band_index(i, TW, k, y0, x0, h, w, &iy, &ix);
+    fgf::band_index(i, TW, kk, y0, x0, h, w, &iy, &ix);
     const size_t o = (size_t)iy * w + ix;
-    fgf::band_store(smem, TH, TW, k, i, ps[o], st[o], st[hw + o], st[2 * hw + o]);
+    fgf::band_store(smem, TH, TW, kk, i, ps[o], st[o], st[hw + o], st[2 * hw + o]);
   }
   const StoreMaps store{
       out + ((size_t)b * 4 * D + (bd - b * D)) * hw + (size_t)y0 * w + x0,
       (size_t)D * hw, w};
-  fgf::chain<NTHREADS>(smem, st, h, w, k, inv_k2, TH, TW, y0, x0,
-                       min(TH, h - y0), min(TW, w - x0), tid, store);
+  fgf::chain<NTHREADS, K>(smem, st, h, w, kk, inv_k2, TH, TW, y0, x0,
+                          min(TH, h - y0), min(TW, w - x0), tid, store);
+}
+
+template <int K>
+int launch(const float* p, const float* stats, float* out, int B, int D, int h,
+           int w, int k, float inv_k2, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * fgf::chain_floats(TH, TW, k);
+  cudaError_t err = cudaFuncSetAttribute(
+      lowmaps_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, B * D);
+  lowmaps_kernel<K><<<grid, NTHREADS, smem, stream>>>(p, stats, out, D, h, w, k, inv_k2);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The boxes of subsample 8, 4, 2 and 1 at gif_radius 8 are instantiated;
+// any other odd k takes the run-time instance.
 extern "C" int psm_lowmaps(const float* p, const float* stats, float* out,
                            int B, int D, int h, int w, int k, float inv_k2,
                            void* stream) {
-  const size_t smem = sizeof(float) * fgf::chain_floats(TH, TW, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      lowmaps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, B * D);
-  lowmaps_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      p, stats, out, D, h, w, k, inv_k2);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (k) {
+    case 3: return launch<3>(p, stats, out, B, D, h, w, k, inv_k2, s);
+    case 5: return launch<5>(p, stats, out, B, D, h, w, k, inv_k2, s);
+    case 9: return launch<9>(p, stats, out, B, D, h, w, k, inv_k2, s);
+    case 17: return launch<17>(p, stats, out, B, D, h, w, k, inv_k2, s);
+    default: return launch<0>(p, stats, out, B, D, h, w, k, inv_k2, s);
+  }
 }

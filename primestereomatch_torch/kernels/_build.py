@@ -33,6 +33,8 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+MAX_SMEM_BYTES = 227 * 1024       # shared memory a block may use on Hopper
+SM_SMEM_BYTES = 228 * 1024        # of an SM, 1 KB of it reserved per resident block
 _FNS: dict = {}                    # bound C entry points, by kernel name
 BUILD_LOGS: dict[str, str] = {}    # nvcc/ptxas output per kernel, for reports
 
@@ -40,10 +42,9 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers and the stream as void*, sizes as int
 _ARGTYPES = {
     "lowmaps": ("psm_lowmaps", [_VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]),
-    "wta": ("psm_upsample_wta",
-            [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP]),
+    "wta": ("psm_upsample_wta", [_VP] * 7 + [_I] * 8 + [_VP]),
     "cvc_lowmaps": ("psm_cvc_lowmaps",
-                    [_VP] * 6 + [_I] * 7 + [_F] * 6 + [_VP]),
+                    [_VP] * 6 + [_I] * 7 + [_F] + [_I] + [_F] * 5 + [_VP]),
     "cvc_wta": ("psm_cvc_wta",
                 [_VP] * 10 + [_I] * 7 + [_F] + [_I] * 2 + [_F] * 5 + [_VP]),
     "wmf": ("psm_joint_wmf", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]),
@@ -110,6 +111,37 @@ def build(names=NAMES) -> float:
         logs = "\n".join(f"--- {n} ---\n{BUILD_LOGS[n]}" for n in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
     return time.perf_counter() - t0
+
+
+def build_variants(name: str, variants: dict) -> dict:
+    """`csrc/<name>.cu` compiled once per entry of `variants` (key -> extra
+    nvcc flags, its -D knobs), the missing ones all at once, for the
+    scripts that time shapes other than the shipped one. Returns the bound
+    C entry per key; the compiler's output goes to
+    BUILD_LOGS[f"{name} {key}"]."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs, procs = {}, {}
+    for key, flags in variants.items():
+        tag = hashlib.sha256(" ".join(flags).encode()).hexdigest()[:8]
+        libs[key] = out_dir / f"{_lib_path(name).stem}-{tag}.so"
+        if not libs[key].exists():
+            tmp = f"{libs[key]}.{os.getpid()}.tmp"
+            procs[key] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for key, (tmp, proc) in procs.items():
+        log = BUILD_LOGS[f"{name} {key}"] = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name} {key}:\n{log}")
+        os.replace(tmp, libs[key])
+    fn_name, argtypes = _ARGTYPES[name]
+    fns = {}
+    for key, so in libs.items():
+        fn = getattr(ctypes.CDLL(str(so)), fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[key] = fn
+    return fns
 
 
 def load(name: str):

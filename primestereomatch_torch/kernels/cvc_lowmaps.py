@@ -4,11 +4,14 @@ csrc/cvc_lowmaps.cu).
 Replaces primestereomatch_tpu/kernels/cvc_lowmaps_pallas.py::
 _cvc_lowmaps_kernel. The function reads the views, their gradients and the
 guide statistics and writes the four coefficient maps per disparity, so on
-the H100 the map writes bound it (bytes); the (D, h, w) cost volume never
-exists in device memory. The TPU's polyphase planes, lane rotate and
-in-kernel margin rebuild are gone: each entry of a block's shared-memory
-band is the cost at the reflected in-image sample, read through the FGF's
-sample tables.
+the H100 the map writes bound the function (bytes); the (D, h, w) cost
+volume never exists in device memory. The TPU's polyphase planes, lane
+rotate and in-kernel margin rebuild are gone: each entry of a block's
+shared-memory band is the cost at the reflected in-image sample, read
+through the FGF's sample tables. A block takes a 32 x 32 tile of one view
+and a chunk of disparities (`plan_chunks`): it stages the tile's local-view
+samples once and runs cost band, chain (csrc/fgf_chain.cuh) and map writes
+for each d of the chunk.
 
 Views come stacked, the B left views first and then the B right ones: view
 v < B is matched against view v + B at x - d (border where x < d), view
@@ -23,11 +26,43 @@ import math
 import torch
 
 from primestereomatch_torch.kernels import _build
-from primestereomatch_torch.kernels.lowmaps import MAX_K, low_maps_plain
+from primestereomatch_torch.kernels.lowmaps import (
+    MAX_K,
+    TILE,
+    chain_smem_bytes,
+    low_maps_plain,
+)
 from primestereomatch_torch.ops.cost_volume import sampled_cost_volumes
 from primestereomatch_torch.ops.resize import nearest_table
 
 MAX_GRID_Z = 65535   # CUDA's limit on the grid's z extent
+MAX_CHUNK = 16       # disparities a block takes at most
+
+
+def smem_bytes(k: int) -> int:
+    """Shared memory of a K4 block (csrc/cvc_lowmaps.cu::smem_floats): the
+    chain's and, where they fit beside it, the staged samples of the band
+    (a float4 of the local view and a packed position each)."""
+    chain = chain_smem_bytes(TILE, TILE, k)
+    staged = chain + 20 * (TILE + 4 * (k // 2)) ** 2
+    return staged if staged <= _build.MAX_SMEM_BYTES else chain
+
+
+def plan_chunks(n_views: int, max_dis: int, h: int, w: int, k: int,
+                sm_count: int) -> tuple[int, tuple[int, int, int]]:
+    """(disparities per block, grid) of a K4 launch. A longer chunk shares
+    the staged samples among more disparities; it is cut, down to 1, until
+    the launch holds two blocks for every block the card runs at once, so
+    that a small image still fills it. Raises where views x chunks exceed
+    the grid's z extent."""
+    tiles = -(-h // TILE) * -(-w // TILE)
+    resident = sm_count * max(1, _build.SM_SMEM_BYTES // (smem_bytes(k) + 1024))
+    chunk = max(1, min(MAX_CHUNK, max_dis, tiles * n_views * max_dis // (2 * resident)))
+    grid = (-(-w // TILE), -(-h // TILE), n_views * -(-max_dis // chunk))
+    if grid[2] > MAX_GRID_Z:
+        raise ValueError(f"{n_views} views x {-(-max_dis // chunk)} chunks of disparities "
+                         f"exceed one launch's grid")
+    return chunk, grid
 
 
 def cvc_low_maps_plain(views: torch.Tensor, grds: torch.Tensor, stats: torch.Tensor,
@@ -94,15 +129,17 @@ def cvc_low_maps(views: torch.Tensor, grds: torch.Tensor, stats: torch.Tensor,
                                   tau1, tau2)
     B2, H, W, _ = views.shape
     h, w = stats.shape[-2:]
-    if B2 * max_dis > MAX_GRID_Z:
-        raise ValueError(f"{B2} views x {max_dis} disparities exceed one launch's grid")
+    if max(H, W) >= 2**16:
+        raise ValueError(f"image {H}x{W}: K4 takes sides below 65536")
     dev = views.device
+    chunk, _ = plan_chunks(B2, max_dis, h, w, k,
+                           torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((B2, 4, max_dis, h, w), dtype=torch.float32, device=dev)
     fn = _build.load("cvc_lowmaps")
     rc = fn(views.data_ptr(), grds.data_ptr(), stats.data_ptr(),
             nearest_table(H, h, dev, torch.int32).data_ptr(),
             nearest_table(W, w, dev, torch.int32).data_ptr(), out.data_ptr(),
-            B2 // 2, max_dis, H, W, h, w, k, ctypes.c_float(1.0 / (k * k)),
+            B2 // 2, max_dis, H, W, h, w, k, ctypes.c_float(1.0 / (k * k)), chunk,
             *cost_args(alpha, border_cost, tau1, tau2),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check("cvc_lowmaps", rc)

@@ -7,17 +7,17 @@ the views, their gradients and the guide statistics and writes uint8
 disparities; neither the cost volume nor the (4, D, h, w) maps exist in
 device memory, so arithmetic bounds it on the H100. One block per 64 x 64
 output tile loops over d, rebuilding the tile's map window in shared
-memory and folding the argmin in registers. Its result equals K4 followed
-by K2 bit for bit; d = 0 is skipped and the tables are clamped at every
-column, so the TPU kernel's d = 0 poison and left-edge fix-up are gone.
+memory (the chain of csrc/fgf_chain.cuh, its box size a template argument
+for k = 3, 5, 9, 17) and folding the argmin in registers. Its result
+equals K4 followed by K2 bit for bit; d = 0 is skipped and the tables are
+clamped at every column, so the TPU kernel's d = 0 poison and left-edge
+fix-up are gone.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
-import numpy as np
 import torch
 
 from primestereomatch_torch.kernels import _build
@@ -27,20 +27,20 @@ from primestereomatch_torch.kernels.cvc_lowmaps import (
     cost_args,
     cvc_low_maps_plain,
 )
+from primestereomatch_torch.kernels.lowmaps import chain_smem_bytes
 from primestereomatch_torch.kernels.wta import upsample_wta_plain
-from primestereomatch_torch.ops.resize import linear_coeffs, linear_tables, nearest_table
+from primestereomatch_torch.ops.resize import linear_tables, low_window, nearest_table
 
 TILE = 64   # output pixels per block edge (csrc/cvc_wta.cu::OT)
 
 
-@functools.lru_cache(maxsize=None)
-def low_window(src: int, dst: int) -> int:
-    """The most low-res pixels along one axis that the bilinear taps of a
-    TILE-wide run of output pixels span."""
-    sx, _ = linear_coeffs(src, dst)
-    first = np.arange(0, dst, TILE)
-    last = np.minimum(first + TILE, dst) - 1
-    return int((np.minimum(sx[last] + 1, src - 1) - sx[first] + 1).max())
+def smem_bytes(lth: int, ltw: int, k: int) -> int:
+    """Shared memory of a K10 block whose tile spans lth x ltw low-res
+    pixels (csrc/cvc_wta.cu::smem_floats): the chain's, the four finished
+    map tiles, the staged local view and positions of the band (6 words an
+    entry), and the output rows' tap tables."""
+    band = (lth + 4 * (k // 2)) * (ltw + 4 * (k // 2))
+    return chain_smem_bytes(lth, ltw, k) + 4 * (4 * lth * ltw + 6 * band) + 3 * 4 * TILE
 
 
 def cvc_wta_plain(views: torch.Tensor, grds: torch.Tensor, stats: torch.Tensor,
@@ -72,7 +72,12 @@ def cvc_wta(views: torch.Tensor, grds: torch.Tensor, stats: torch.Tensor,
     dev = views.device
     ly0, _, lyf = linear_tables(h, H, dev, torch.int32)
     lx0, _, lxf = linear_tables(w, W, dev, torch.int32)
-    lth, ltw = low_window(h, H), low_window(w, W)
+    lth, ltw = low_window(h, H, TILE), low_window(w, W, TILE)
+    if smem_bytes(lth, ltw, k) > _build.MAX_SMEM_BYTES:
+        raise ValueError(
+            f"a {TILE}x{TILE} output tile spans {lth}x{ltw} low-res pixels; with a "
+            f"{k}x{k} box that needs more shared memory than the card gives a block"
+        )
     out = torch.empty((B2, H, W), dtype=torch.uint8, device=dev)
     fn = _build.load("cvc_wta")
     rc = fn(views.data_ptr(), grds.data_ptr(), stats.data_ptr(),
@@ -83,11 +88,6 @@ def cvc_wta(views: torch.Tensor, grds: torch.Tensor, stats: torch.Tensor,
             ctypes.c_float(1.0 / (k * k)), lth, ltw,
             *cost_args(alpha, border_cost, tau1, tau2),
             torch.cuda.current_stream(dev).cuda_stream)
-    if rc == -1:
-        raise ValueError(
-            f"a {TILE}x{TILE} output tile spans {lth}x{ltw} low-res pixels; with a "
-            f"{k}x{k} box that needs more shared memory than the card gives a block"
-        )
     _build.check("cvc_wta", rc)
     _build.LAUNCHES["cvc_wta"] += 1
     return out

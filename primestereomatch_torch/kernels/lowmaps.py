@@ -1,9 +1,12 @@
 """K1: the low-resolution FGF coefficient chain (CUDA, csrc/lowmaps.cu).
 
 Replaces primestereomatch_tpu/kernels/lowmaps_pallas.py::_lowmaps_kernel.
-Bound on the H100 by device memory traffic (one cost read, four maps
-written per value); the kernel keeps the whole box/solve/box chain of a
-tile in shared memory. The TPU layout artefacts (128-lane margins, row
+The function is bound on the H100 by device memory traffic (one cost read,
+four maps written per value); the kernel keeps the whole box/solve/box
+chain of a 32 x 32 tile in shared memory (csrc/fgf_chain.cuh, shared with
+K4 and K10: one float4 of the four planes per entry, taps at constant
+offsets, the box size a template argument for k = 3, 5, 9, 17 and a
+run-time value otherwise). The TPU layout artefacts (128-lane margins, row
 tiles, the d=0 poison) are gone: the maps come out in the plain
 (B, 4, D, h, w) layout and the WTA kernel simply starts at d=1.
 """
@@ -18,6 +21,18 @@ from primestereomatch_torch.kernels import _build
 from primestereomatch_torch.ops.guided_filter import guide_stats, low_maps_from_stats
 
 MAX_K = 17  # largest box the kernel's shared-memory tile is sized for
+TILE = 32   # low-res pixels per block edge (csrc/lowmaps.cu, cvc_lowmaps.cu: TH, TW)
+RUN = 4     # outputs a thread sums along the box axis (csrc/fgf_chain.cuh: RV)
+
+
+def chain_smem_bytes(th: int, tw: int, k: int) -> int:
+    """Shared memory of the chain for th x tw tiles and k x k boxes
+    (csrc/fgf_chain.cuh::chain_floats): the band, the row sums and the
+    first-level maps with the RUN - 1 rows the last run reads past, one
+    float4 per entry."""
+    m = 2 * (k // 2)
+    return 16 * ((th + 2 * m) * (tw + 2 * m) + (th + m) * (tw + 2 * m)
+                 + (th + m + RUN - 1) * (tw + m))
 
 
 def low_maps_plain(p_low: torch.Tensor, stats: torch.Tensor, k: int) -> torch.Tensor:

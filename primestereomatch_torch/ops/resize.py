@@ -41,6 +41,17 @@ def linear_coeffs(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
     return sx, f.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def low_window(src: int, dst: int, tile: int) -> int:
+    """The most source pixels along one axis that the bilinear taps of a
+    `tile`-long run of destination pixels span, over the runs that start at
+    the multiples of `tile`."""
+    sx, _ = linear_coeffs(src, dst)
+    first = np.arange(0, dst, tile)
+    last = np.minimum(first + tile, dst) - 1
+    return int((np.minimum(sx[last] + 1, src - 1) - sx[first] + 1).max())
+
+
 def nearest_table(src: int, dst: int, device,
                   index_dtype: torch.dtype = torch.long) -> torch.Tensor:
     """`nearest_indices` as an index tensor on `device`, uploaded once."""

@@ -35,21 +35,52 @@ def _inputs(dev, B=2, D=16, H=72, W=150, s=4, k=5, seed=0):
     return g, p, guide_stats(g, (H // s, W // s), k, 1e-4).contiguous()
 
 
-@pytest.mark.parametrize("s,k", [(4, 5), (2, 9), (8, 3)])
-def test_low_maps_kernel_matches_plain(dev, s, k):
-    _, p, stats = _inputs(dev, s=s, k=k)
+# (B, D, low-res h, w): the default, one less and one more than a 32-pixel
+# tile on either axis, an image smaller than one tile, two tiles and a column
+LOW_SHAPES = [(2, 16, 18, 37), (1, 2, 31, 33), (2, 3, 33, 31), (1, 65, 18, 20), (2, 5, 64, 65)]
+
+
+# k = 17 and 7: the largest instantiated box and one the run-time instance takes
+@pytest.mark.parametrize("s,k", [(4, 5), (2, 9), (8, 3), (4, 17), (4, 7)])
+@pytest.mark.parametrize("B,D,h,w", LOW_SHAPES)
+def test_low_maps_kernel_matches_plain(dev, s, k, B, D, h, w):
+    """K1 is bitwise its plain version at every box size and tiling."""
+    _, p, stats = _inputs(dev, B=B, D=D, H=h * s, W=w * s, s=s, k=k)
     K.reset_launches()
     got = K.low_maps(p, stats, k)
     assert K.LAUNCHES["lowmaps"] == 1
-    assert torch.allclose(got, K.low_maps_plain(p, stats, k), atol=2e-4, rtol=1e-3)
+    assert torch.equal(got, K.low_maps_plain(p, stats, k))
 
 
-@pytest.mark.parametrize("W", [150, 160])   # quasi and exact column ratios
-def test_upsample_wta_kernel_matches_plain(dev, W):
-    g, p, stats = _inputs(dev, W=W)
+# W 150 and 160: quasi and exact column ratios, the staged kernel's 64 x 16
+# tiles cut on both axes; D - 1 below, equal to and no multiple of its chunk
+# of 8 disparities; an image lower than one tile
+@pytest.mark.parametrize("W", [150, 160])
+@pytest.mark.parametrize("B,D,H", [(2, 16, 72), (1, 2, 124), (2, 3, 132), (1, 65, 72),
+                                   (1, 9, 72), (1, 6, 12)])
+def test_upsample_wta_kernel_matches_plain(dev, W, B, D, H):
+    g, p, stats = _inputs(dev, B=B, D=D, H=H, W=W)
     maps = K.low_maps_plain(p, stats, 5)
+    K.reset_launches()
     got = K.upsample_wta(g, maps)
-    assert (got != K.upsample_wta_plain(g, maps)).float().mean() <= 2e-3
+    assert K.LAUNCHES["wta"] == 1
+    assert torch.equal(got, K.upsample_wta_plain(g, maps))
+
+
+@pytest.mark.parametrize("HW", [(15, 63), (17, 65), (31, 127), (33, 129), (64, 256),
+                                (12, 40)])
+def test_upsample_wta_staged_kernel_at_tile_edges(dev, HW):
+    """The staged kernel (a 4x ratio) on images one less and one more than
+    its 64 x 16 tiles, on whole tiles and below one tile: bitwise plain."""
+    from primestereomatch_torch.kernels.wta import staged_window
+
+    H, W = HW
+    h, w = -(-H // 4), -(-W // 4)
+    assert staged_window(h, w, H, W) is not None
+    rng = np.random.default_rng(W)
+    g = torch.as_tensor(rng.random((2, H, W, 3)).astype(np.float32), device=dev)
+    maps = torch.as_tensor(rng.random((2, 4, 7, h, w)).astype(np.float32), device=dev)
+    assert torch.equal(K.upsample_wta(g, maps), K.upsample_wta_plain(g, maps))
 
 
 WMF_CASES = [(9, 64), (9, 256), (4, 256), (3, 10), (0, 8)]
@@ -153,20 +184,28 @@ def _views(dev, H, W, s, k, B=1, seed=0):
 FUSED_CASES = [(4, 5, 150, 320, {}), (2, 9, 72, 160, {}), (8, 3, 144, 320, {}),
                (3, 5, 99, 159, {}),                                # an odd ratio
                (4, 5, 70, 150, {"tau1": 0.3, "tau2": 0.05}),       # quasi columns, clamps
-               (2, 9, 72, 160, {"tau1": 0.3, "alpha": 0.7, "border_cost": 0.5})]
+               (2, 9, 72, 160, {"tau1": 0.3, "alpha": 0.7, "border_cost": 0.5}),
+               (4, 17, 150, 320, {}),      # the largest instantiated box
+               (4, 7, 150, 320, {}),       # a box the run-time instance takes
+               (4, 5, 124, 132, {}),       # 31 x 33 low-res: one less, one more than a tile
+               (4, 5, 132, 124, {"tau1": 0.3}),
+               (4, 5, 72, 100, {}),        # smaller than one tile
+               (4, 5, 376, 672, {})]       # ZED-VGA: several disparities a block
 
 
 @pytest.mark.parametrize("s,k,H,W,cost", FUSED_CASES)
 @pytest.mark.parametrize("B", [1, 2])
-def test_cvc_low_maps_kernel_matches_plain(dev, s, k, H, W, cost, B):
+@pytest.mark.parametrize("D", [16, 2, 3, 65])
+def test_cvc_low_maps_kernel_matches_plain(dev, s, k, H, W, cost, B, D):
     """K4 is bitwise its plain version (sampled cost, then K1's plain
-    version), both directions, with and without clamps."""
+    version), both directions, with and without clamps, whether or not
+    the chunk of disparities a block takes divides D."""
     views, grds, stats = _views(dev, H, W, s, k, B)
     K.reset_launches()
-    got = K.cvc_low_maps(views, grds, stats, 16, k, **cost)
+    got = K.cvc_low_maps(views, grds, stats, D, k, **cost)
     assert K.LAUNCHES["cvc_lowmaps"] == 1 and K.LAUNCHES["lowmaps"] == 0
-    want = K.cvc_low_maps_plain(views, grds, stats, 16, k, **cost)
-    assert got.shape == want.shape == (2 * B, 4, 16, H // s, W // s)
+    want = K.cvc_low_maps_plain(views, grds, stats, D, k, **cost)
+    assert got.shape == want.shape == (2 * B, 4, D, H // s, W // s)
     assert torch.equal(got, want)
 
 

@@ -34,25 +34,12 @@ VARIANTS = [(8, 64, 4), (8, 64, 1), (8, 32, 4), (8, 32, 1), (8, 128, 4), (4, 64,
 
 
 def build_variants():
-    out_dir = _build.build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for th, nb, u in VARIANTS:
-        so = out_dir / f"libwmf_th{th}_nb{nb}_u{u}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DPSM_WMF_TH={th}", f"-DPSM_WMF_NB={nb}",
-               f"-DPSM_WMF_U={u}", "-o", str(so), str(_build.CSRC / "wmf.cu")]
-        procs.append(((th, nb, u), so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    fns = {}
-    for key, so, proc in procs:
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
-        used = [ln.strip() for ln in log.splitlines() if "Used" in ln]
+    fns = _build.build_variants("wmf", {
+        (th, nb, u): [f"-DPSM_WMF_TH={th}", f"-DPSM_WMF_NB={nb}", f"-DPSM_WMF_U={u}"]
+        for th, nb, u in VARIANTS})
+    for key in fns:
+        used = [ln.strip() for ln in _build.BUILD_LOGS[f"wmf {key}"].splitlines() if "Used" in ln]
         print(f"ptxas TH={key[0]} NB={key[1]} U={key[2]}: {used[0]}", flush=True)
-        fn = ctypes.CDLL(str(so)).psm_joint_wmf
-        fn.argtypes, fn.restype = _build._ARGTYPES["wmf"][1], ctypes.c_int
-        fns[key] = fn
     return fns
 
 
