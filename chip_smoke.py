@@ -17,7 +17,7 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      0 pixels required); K4 (cost + low-maps, bitwise expected; at 2K also
      at D=100, which its 16 disparities a block do not divide, 0 values
      required) and K10 (cost + chain + WTA, also against
-     K4 -> K2 on the card, 0 differing pixels expected) at a seeded ZED-VGA
+     K4 -> K2 on the card, 0 differing pixels required) at a seeded ZED-VGA
      pair (376x672, D=64) and the 2K pair; K3 at 2K on two inputs, the WTA
      output and uniformly random disparities over all 256 bins (the most
      bin-window passes), 0 differing pixels required at every K3 shape;
@@ -39,15 +39,16 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      Cones, whose int16 outputs must hash to the JAX package's (sha256) and
      meet the cv2-golden bounds of tests/test_sgbm_cv2_golden.py, then the
      2K pair with num_disparities=256, whose interior medians must be the
-     field's 96 and 48 within 1; every SGBM frame launches K6 twice, K7
+     field's 96 and 48 within 1; every SGBM frame launches K6 once, K7
      twice (the partials route) and K8 once;
   5. times with CUDA events (3 warm-up, 20 timed launches; 1 and 2 for
      the slow SGBM plain versions at 2K, 1 and 3 for the fused tails' plain
      versions at 2K; K3's plain version on the random 2K input runs once)
-     of each kernel and its plain version, K2's and K4's launch shapes
-     (tile, chunk, shared memory, ptxas registers) and their times at 2K
-     in a few shapes that were tried and rejected (tune_gif_tail.py builds
-     and times them), K3's bin-window passes per block,
+     of each kernel and its plain version, K2's, K4's and K10's launch
+     shapes (tile, chunk, shared memory, ptxas registers) and their times
+     at 2K in a few shapes that were tried and rejected (tune_gif_tail.py
+     builds and times them), K6's launch shape and its times in the shapes
+     tried (tune_bt_cost.py), K3's bin-window passes per block,
      K7's bytes per (pixel, d) by its own count, the rate that follows,
      its time at four ring sizes and on 8 image rows alone, end-to-end frame
      times (host clock, synchronised; 10 frames for the 2K GIF paths), a
@@ -75,9 +76,15 @@ import numpy as np
 import torch
 
 import primestereomatch_torch as psm
+import tune_bt_cost
 import tune_gif_tail as tune
 from primestereomatch_torch import kernels as K
 from primestereomatch_torch.kernels import _build, cvc_lowmaps, sgbm_scan
+from primestereomatch_torch.kernels.bt_cost import launch_shape as bt_launch_shape
+from primestereomatch_torch.kernels.cvc_wta import THREADS as K10_THREADS
+from primestereomatch_torch.kernels.cvc_wta import TILE_X as K10_TILE_X
+from primestereomatch_torch.kernels.cvc_wta import plan_tile as k10_plan_tile
+from primestereomatch_torch.kernels.cvc_wta import smem_bytes as k10_smem_bytes
 from primestereomatch_torch.kernels import wta as wta_mod
 from primestereomatch_torch.models.gif_pipeline import _to_u8, stacked_views
 from primestereomatch_torch.ops import sgbm as sgbm_ops
@@ -478,6 +485,21 @@ def fused_parity(name: str, cfg, left, right, dev, report):
         f"cvc_lowmaps -> upsample_wta on the card mismatch={frac_2:.3e} (bounds 2e-3)")
     if max(frac, frac_2) > 2e-3 or int(disp_k.min()) < 1:
         raise AssertionError(f"cvc_wta disagrees at {name}")
+    if frac_2:
+        raise AssertionError(f"cvc_wta is not bitwise cvc_lowmaps -> upsample_wta at {name}")
+    rows, groups, lth, ltw = k10_plan_tile(*stats.shape[-2:], H, W, k, B2, sms)
+    row["cvc_wta"]["design"] = {
+        "tile": [rows, K10_TILE_X], "chains_at_once": groups, "window": [lth, ltw],
+        "threads": K10_THREADS, "smem_bytes": k10_smem_bytes(lth, ltw, k, groups),
+        **tune.resources(_build.BUILD_LOGS["cvc_wta"])}
+    log(f"design {name} cvc_wta: {row['cvc_wta']['design']}")
+    if D > 64:
+        # shapes tried and rejected (each bitwise the shipped kernel)
+        tried = tune.k10_variant_ms(views, grds, stats, D, k, cost, tune.K10_VARIANTS[1:])
+        row["cvc_wta"]["design"]["rejected_ms"] = {
+            f"{nt} threads, {r} x {otx} tile, {mb} blocks an SM, RV {rv}, {g} chains": ms
+            for (nt, otx, mb, rv, r, g), ms in tried.items()}
+        log(f"tried {name} cvc_wta: {row['cvc_wta']['design']['rejected_ms']} ms")
     del disp_k, disp_2, disp_p, diff
     torch.cuda.empty_cache()
 
@@ -522,6 +544,14 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
     cost = K.bt_cost(lf, rf, D, k, cost_bound)
     check("bt_cost", [(cost, K.bt_cost_plain(lf, rf, D, k, cost_bound))],
           f"(H,W,C,D)={tuple(lf.shape) + (D,)} k={k} {cost.dtype}")
+    # the launch shape, and the shapes tried (each bitwise the shipped one)
+    row["bt_cost"]["design"] = {
+        **bt_launch_shape(*lf.shape[:2], D, k, lf.shape[2], cost.element_size(),
+                          torch.cuda.get_device_properties(dev).multi_processor_count),
+        **tune.resources(_build.BUILD_LOGS["bt_cost"]),
+        "tried_ms": {f"strip {a}, d_chunk {b}": ms for (a, b), ms in
+                     tune_bt_cost.variant_ms(lf, rf, D, k, cost_bound).items()}}
+    log(f"design {name} bt_cost: {row['bt_cost']['design']}")
     # K7, the main path's entry: uint16 group partials, summed here on the
     # card only to hold them against the plain int32 S
     parts = K.sgbm_aggregate_partials(cost, cfg.p1, cfg.p2, nd, cost_bound)
@@ -829,10 +859,10 @@ def main() -> int:
     if min(slaunches[k] for k in SGBM_KERNELS) < 1:
         raise AssertionError(f"a kernel of the SGBM path never launched: {slaunches}")
     for n, per in sper_frame.items():
-        # the partials route: K6 row + column pass, K7 a family of each group
-        # per launch, K8 once; K9 two launches a sweep, four sweeps a check
-        if (per["bt_cost"], per["sgbm_scan"], per["select"]) != (2, 2, 1) or per["speckle"] % 4:
-            raise AssertionError(f"SGBM {n} launched {per}, expected K6 2, K7 2, K8 1")
+        # the partials route: K6 once, K7 a family of each group per launch,
+        # K8 once; K9 two launches a sweep, four sweeps a check
+        if (per["bt_cost"], per["sgbm_scan"], per["select"]) != (1, 2, 1) or per["speckle"] % 4:
+            raise AssertionError(f"SGBM {n} launched {per}, expected K6 1, K7 2, K8 1")
     if any(v for k, v in _build.LAUNCHES.items() if k not in SGBM_KERNELS):
         raise AssertionError(f"the SGBM path launched a GIF kernel: {_build.LAUNCHES}")
 
@@ -885,7 +915,7 @@ def main() -> int:
                 "lowmaps_kernel": "lowmaps", "upsample_wta_kernel": "wta",
                 "upsample_wta_staged_kernel": "wta",
                 "joint_wmf_kernel": "wmf", "wmf_weights_kernel": "wmf"}
-    sgbm_tags = {"bt_row_kernel": "bt_cost", "bt_col_kernel": "bt_cost",
+    sgbm_tags = {"bt_cost_kernel": "bt_cost",
                  "sgm_scan_kernel": "sgbm_scan", "select_kernel": "select",
                  "segmin_": "speckle"}
     gif_runs = {

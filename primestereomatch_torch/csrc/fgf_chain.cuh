@@ -119,18 +119,25 @@ __device__ __forceinline__ void run_sums(const float4* src, int stride, int k,
   }
 }
 
+// The block-wide barrier the chain takes by default; a kernel that runs
+// several chains at once in groups of warps passes its group's barrier.
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
 // The chain over a filled band. `smem` is the block's chain_floats(th, tw,
 // k) floats (16-byte aligned), the band first; `st` the view's 12
 // statistic planes (h x w each: channels, box means, inverse covariance rr
 // rg rb gg gb bb); (oh, ow) the part of the tile that holds outputs. K is
-// the box size at compile time, or 0 for the run-time `k`. Every thread of
-// the block calls it; it synchronises before it reads the band and between
-// its steps, not after the last `emit` (which reads where the band lay).
-template <int NT, int K, class Emit>
+// the box size at compile time, or 0 for the run-time `k`. Every one of
+// the NT threads that share `sync` calls it (tid in [0, NT)); it
+// synchronises before it reads the band and between its steps, not after
+// the last `emit` (which reads where the band lay).
+template <int NT, int K, class Emit, class Sync = BlockSync>
 __device__ __forceinline__ void chain(float* smem, const float* __restrict__ st,
                                       int h, int w, int k, float inv_k2, int th,
                                       int tw, int y0, int x0, int oh, int ow,
-                                      int tid, Emit emit) {
+                                      int tid, Emit emit, Sync sync = Sync()) {
   constexpr int R = K > 0 ? RV : 1;
   const int kk = K > 0 ? K : k;
   const int m1 = kk / 2;
@@ -150,7 +157,7 @@ __device__ __forceinline__ void chain(float* smem, const float* __restrict__ st,
   const int qa = max(0, -mx0), qb = min(nmw, w - mx0);
   const int nr = rb - ra, nq = qb - qa;
   const bool edge = nr < nmh || nq < nmw;   // some mid entries lie outside the image
-  __syncthreads();
+  sync();
 
   // sums over k band rows, for the in-image mid rows: R rows a thread
   {
@@ -166,7 +173,7 @@ __device__ __forceinline__ void chain(float* smem, const float* __restrict__ st,
         if (r0 + j < rb) rs[(r0 + j) * bw + jx] = s[j];
     }
   }
-  __syncthreads();
+  sync();
 
   // first-level maps at the in-image pixels (my0 + r, mx0 + q), each stored
   // at its own entry and at the entries that reflect onto it
@@ -207,7 +214,7 @@ __device__ __forceinline__ void chain(float* smem, const float* __restrict__ st,
           if (rok[a] && cok[b]) mid[rows[a] * mw + cols[b]] = m;
     }
   }
-  __syncthreads();
+  sync();
 
   // second box over the maps: sums over k mid rows, R rows a thread
   {
@@ -223,7 +230,7 @@ __device__ __forceinline__ void chain(float* smem, const float* __restrict__ st,
         if (ty0 + j < oh) rs2[(ty0 + j) * mw + q] = s[j];
     }
   }
-  __syncthreads();
+  sync();
 
   {
     const FastDiv by_ow(ow);
@@ -247,10 +254,21 @@ struct CostParams {
   float alpha, one_minus_alpha, border, tau1, tau2;
 };
 
-// Cost of local pixel a = (b, g, r, grad) at full-resolution column X
-// against the other view at X - d (left view; border where X < d) or X + d
-// (right view; border where X >= W - d). `oimg` / `ogrd` are the other
-// view's row. On the border every other-view operand is `border`.
+// Cost of local pixel a = (b, g, r, grad) against the other view's
+// (b0, b1, b2, bg).
+__device__ __forceinline__ float pair_cost(const float a[4], float b0, float b1, float b2,
+                                           float bg, const CostParams& cp) {
+  float clr = fabsf(a[0] - b0) + fabsf(a[1] - b1) + fabsf(a[2] - b2);
+  float grd = fabsf(a[3] - bg);
+  clr = fminf(clr, cp.tau1);
+  grd = fminf(grd, cp.tau2);
+  return cp.alpha * clr + cp.one_minus_alpha * grd;
+}
+
+// Cost of local pixel a at full-resolution column X against the other view
+// at X - d (left view; border where X < d) or X + d (right view; border
+// where X >= W - d). `oimg` / `ogrd` are the other view's row. On the
+// border every other-view operand is `border`.
 __device__ __forceinline__ float sampled_cost(const float a[4],
                                               const float* __restrict__ oimg,
                                               const float* __restrict__ ogrd,
@@ -265,11 +283,7 @@ __device__ __forceinline__ float sampled_cost(const float a[4],
     b2 = oimg[3 * Xo + 2];
     bg = ogrd[Xo];
   }
-  float clr = fabsf(a[0] - b0) + fabsf(a[1] - b1) + fabsf(a[2] - b2);
-  float grd = fabsf(a[3] - bg);
-  clr = fminf(clr, cp.tau1);
-  grd = fminf(grd, cp.tau2);
-  return cp.alpha * clr + cp.one_minus_alpha * grd;
+  return pair_cost(a, b0, b1, b2, bg, cp);
 }
 
 }  // namespace fgf

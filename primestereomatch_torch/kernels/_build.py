@@ -46,9 +46,9 @@ _ARGTYPES = {
     "cvc_lowmaps": ("psm_cvc_lowmaps",
                     [_VP] * 6 + [_I] * 7 + [_F] + [_I] + [_F] * 5 + [_VP]),
     "cvc_wta": ("psm_cvc_wta",
-                [_VP] * 10 + [_I] * 7 + [_F] + [_I] * 2 + [_F] * 5 + [_VP]),
+                [_VP] * 10 + [_I] * 7 + [_F] + [_I] * 4 + [_F] * 5 + [_VP]),
     "wmf": ("psm_joint_wmf", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]),
-    "bt_cost": ("psm_bt_cost", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP]),
+    "bt_cost": ("psm_bt_cost", [_VP, _VP, _VP] + [_I] * 8 + [_VP]),
     "sgbm_scan": ("psm_sgm_scan",
                   [_VP, _I, _I] + [_VP, _I, _I, _I, _I] * 2 + [_I] * 6 + [_VP]),
     "select": ("psm_select_disparity", [_VP, _VP, _I, _VP] + [_I] * 6 + [_VP]),

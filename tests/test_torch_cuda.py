@@ -190,7 +190,10 @@ FUSED_CASES = [(4, 5, 150, 320, {}), (2, 9, 72, 160, {}), (8, 3, 144, 320, {}),
                (4, 5, 124, 132, {}),       # 31 x 33 low-res: one less, one more than a tile
                (4, 5, 132, 124, {"tau1": 0.3}),
                (4, 5, 72, 100, {}),        # smaller than one tile
-               (4, 5, 376, 672, {})]       # ZED-VGA: several disparities a block
+               (4, 5, 376, 672, {}),       # ZED-VGA: several disparities a block
+               (4, 5, 63, 127, {}),        # one row and one column less than K10's 64 x 128 tile
+               (4, 5, 65, 129, {"tau2": 0.05}),    # one more
+               (4, 5, 128, 256, {})]       # whole tiles
 
 
 @pytest.mark.parametrize("s,k,H,W,cost", FUSED_CASES)
@@ -225,8 +228,27 @@ def test_cvc_wta_kernel_matches_k4_then_k2(dev, s, k, H, W, cost, B):
     assert (got != plain).float().mean() <= 2e-3
 
 
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("rows", [64, 32, 16])
+@pytest.mark.parametrize("edge", [-1, 1, 0], ids=["less", "more", "whole"])
+def test_cvc_wta_kernel_tile_heights_match_k4_then_k2(dev, groups, rows, edge):
+    """Each tile height K10 has, with one chain or two at once, forced, on
+    images one row and one column less than its tile, one more, and whole
+    tiles (two of each), at an odd and an even count of disparities:
+    bitwise K4 followed by K2."""
+    from primestereomatch_torch.kernels import _build
+    from primestereomatch_torch.kernels.cvc_wta import TILE_X, launch
+
+    H, W = (rows + edge, TILE_X + edge) if edge else (2 * rows, 2 * TILE_X)
+    views, grds, stats = _views(dev, H, W, 4, 3, 1, seed=rows + edge)
+    for D in (12, 9):
+        got = launch(_build.load("cvc_wta"), views, grds, stats, D, 3, rows, groups)
+        want = K.upsample_wta(views, K.cvc_low_maps(views, grds, stats, D, 3))
+        assert torch.equal(got, want)
+
+
 def test_cvc_wta_kernel_refuses_a_tile_beyond_shared_memory(dev):
-    """Ratio 1 with a 17x17 box: a 64x64 output tile spans 65x65 low-res
+    """Ratio 1 with a 17x17 box: even a 16-row tile spans 17x96 low-res
     pixels and the chain's band does not fit a block's shared memory."""
     views, grds, stats = _views(dev, 80, 96, 1, 17)
     with pytest.raises(ValueError, match="shared memory"):
@@ -285,15 +307,40 @@ def _features(dev, H, W, C, cap, seed):
     (30, 90, 3, 16, 11, 63),       # cost bound >= 2**15: int32
     (33, 50, 1, 8, 4, 63),         # one channel, even window
     (20, 140, 3, 70, 5, 63),       # D > 64, several d blocks
+    (45, 23, 3, 24, 5, 63),        # narrower than one 60-column tile
+    (9, 130, 3, 24, 5, 63),        # lower than one 32-row strip
+    (70, 200, 3, 100, 5, 63),      # a D the 64-disparity chunk does not divide, 3 strips
+    (40, 130, 3, 40, 1, 63),       # k = 1: the pixel cost alone
+    (45, 150, 3, 40, 7, 300),      # cost bound 88200: int32 out, odd k beyond 5
+    (35, 66, 1, 130, 2, 63),       # even k, D beyond two chunks, one channel
+    (30, 100, 3, 40, 25, 63),      # a window of 25 in int32: 32 disparities a block
 ])
 def test_bt_cost_kernel_matches_plain(dev, H, W, C, D, k, cap):
     lf, rf = _features(dev, H, W, C, cap, H + D)
     bound = k * k * C * 2 * cap
     K.reset_launches()
     got = K.bt_cost(lf, rf, D, k, bound)
-    assert K.LAUNCHES["bt_cost"] == 2
+    assert K.LAUNCHES["bt_cost"] == 1
     want = K.bt_cost_plain(lf, rf, D, k, bound)
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("strip,d_chunk", [(32, 64), (16, 64), (32, 32), (16, 32), (1, 32)])
+@pytest.mark.parametrize("k,cap", [(5, 63), (3, 300), (9, 63)])
+def test_bt_cost_kernel_launch_shapes_match_plain(dev, strip, d_chunk, k, cap):
+    """Every strip height and disparity chunk K6 has (the shapes
+    tune_bt_cost.py times), int16 and int32 out, down to one-row strips:
+    bitwise the plain version."""
+    from primestereomatch_torch.kernels import _build
+    from primestereomatch_torch.kernels.bt_cost import launch, plan
+
+    lf, rf = _features(dev, 50, 97, 3, cap, strip + d_chunk + k)
+    bound = k * k * 3 * 2 * cap
+    want = K.bt_cost_plain(lf, rf, 75, k, bound)
+    out = torch.empty_like(want)
+    shape = plan(k, 3, out.element_size(), strip, d_chunk)
+    got = launch(_build.load("bt_cost"), lf, rf, out, k, shape)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("nd", [3, 5, 8])

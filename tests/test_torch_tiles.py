@@ -6,8 +6,15 @@ import numpy as np
 import pytest
 
 from primestereomatch_torch.kernels import _build, cvc_lowmaps
+from primestereomatch_torch.kernels.bt_cost import COLUMNS as BT_COLUMNS
+from primestereomatch_torch.kernels.bt_cost import THREADS as BT_THREADS
+from primestereomatch_torch.kernels.bt_cost import BLOCKS_PER_SM as BT_BLOCKS_PER_SM
+from primestereomatch_torch.kernels.bt_cost import launch_shape as bt_launch_shape
+from primestereomatch_torch.kernels.bt_cost import plan as bt_plan
 from primestereomatch_torch.kernels import wta as wta_mod
-from primestereomatch_torch.kernels.cvc_wta import TILE as K10_TILE
+from primestereomatch_torch.kernels.cvc_wta import TILE_ROWS as K10_TILE_ROWS
+from primestereomatch_torch.kernels.cvc_wta import TILE_X as K10_TILE_X
+from primestereomatch_torch.kernels.cvc_wta import plan_tile as k10_plan_tile
 from primestereomatch_torch.kernels.cvc_wta import smem_bytes as k10_smem_bytes
 from primestereomatch_torch.kernels.lowmaps import MAX_K, TILE, chain_smem_bytes
 from primestereomatch_torch.ops.resize import linear_coeffs, low_window
@@ -85,15 +92,66 @@ def test_chain_shared_memory_fits_a_block(k):
 @pytest.mark.parametrize("low,full,k", [(*ZED_VGA, 5), (*TWO_K, 5), ((36, 80), (72, 160), 9),
                                         ((37, 80), (150, 320), 17)])
 def test_cvc_wta_tile_fits_a_block(low, full, k):
-    lth, ltw = (low_window(a, b, K10_TILE) for a, b in zip(low, full))
-    assert k10_smem_bytes(lth, ltw, k) <= _build.MAX_SMEM_BYTES
+    rows, groups, lth, ltw = k10_plan_tile(*low, *full, k, 2, 132)
+    assert rows in K10_TILE_ROWS and groups in (1, 2)
+    assert (lth, ltw) == (low_window(low[0], full[0], rows), low_window(low[1], full[1],
+                                                                         K10_TILE_X))
+    assert k10_smem_bytes(lth, ltw, k, groups) <= _build.MAX_SMEM_BYTES
+    if groups == 1:
+        assert k10_smem_bytes(lth, ltw, k, 2) > _build.MAX_SMEM_BYTES
 
 
 def test_cvc_wta_tile_at_ratio_1_does_not_fit():
-    """Ratio 1 with a 17 x 17 box: a 64 x 64 tile spans 65 x 65 low-res pixels."""
-    lth, ltw = low_window(80, 80, K10_TILE), low_window(96, 96, K10_TILE)
-    assert (lth, ltw) == (65, 65)
-    assert k10_smem_bytes(lth, ltw, 17) > _build.MAX_SMEM_BYTES
+    """Ratio 1 with a 17 x 17 box: even a 16-row tile spans 17 x 96
+    low-res pixels of the 80 x 96 image, and the chain's band does not fit
+    a block."""
+    assert (low_window(80, 80, 16), low_window(96, 96, K10_TILE_X)) == (17, 96)
+    assert k10_smem_bytes(17, 96, 17, 1) > _build.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        k10_plan_tile(80, 96, 80, 96, 17, 2, 132)
+
+
+def test_cvc_wta_tile_at_the_shapes_driven():
+    """2K and ZED-VGA at the 4x ratio take 64 x 128 tiles, an 18 x 34
+    window, and two chains at once (207,000 bytes); at ZED-VGA 72 blocks,
+    one wave on 132 SMs."""
+    assert k10_plan_tile(*TWO_K[0], *TWO_K[1], 5, 2, 132) == (64, 2, 18, 34)
+    assert k10_plan_tile(*ZED_VGA[0], *ZED_VGA[1], 5, 2, 132) == (64, 2, 18, 34)
+    assert k10_smem_bytes(18, 34, 5, 2) == 207000
+
+
+def _k10_64_tile_fits(low, full, k):
+    """Whether K10's earlier 64 x 64 tile (six words a band entry, four
+    map tiles, no row lerp) fitted a block: the geometries it took."""
+    lth, ltw = low_window(low[0], full[0], 64), low_window(low[1], full[1], 64)
+    band = (lth + 4 * (k // 2)) * (ltw + 4 * (k // 2))
+    return chain_smem_bytes(lth, ltw, k) + 4 * (4 * lth * ltw + 6 * band) + 3 * 4 * 64 \
+        <= _build.MAX_SMEM_BYTES
+
+
+# (subsample, k, H, W): tests/test_torch_cuda.py's FUSED_CASES and the
+# camera sizes ZED-VGA, HD720 and 2K at the four boxes and ratios
+K10_GEOMETRIES = [(4, 5, 150, 320), (2, 9, 72, 160), (8, 3, 144, 320), (3, 5, 99, 159),
+                  (4, 5, 70, 150), (4, 17, 150, 320), (4, 7, 150, 320), (4, 5, 124, 132),
+                  (4, 5, 132, 124), (4, 5, 72, 100), (4, 5, 376, 672), (4, 5, 63, 127),
+                  (4, 5, 65, 129), (4, 5, 128, 256)] + [
+    (s, k, H, W) for s in (2, 3, 4, 8) for k in (3, 5, 9, 17)
+    for H, W in ((376, 672), (720, 1280), (1242, 2208))]
+
+
+@pytest.mark.parametrize("s,k,H,W", K10_GEOMETRIES)
+def test_cvc_wta_plan_takes_every_geometry_the_64_tile_took(s, k, H, W):
+    """The planner finds a tile wherever the earlier kernel's fitted, so
+    ops/geometry.py::full_fusion_applies never routes a frame into an
+    error; the tile it picks fits a block."""
+    low, full = (H // s, W // s), (H, W)
+    if not _k10_64_tile_fits(low, full, k):
+        with pytest.raises(ValueError, match="shared memory"):
+            k10_plan_tile(*low, *full, k, 2, 132)
+        return
+    rows, groups, lth, ltw = k10_plan_tile(*low, *full, k, 2, 132)
+    assert rows in K10_TILE_ROWS
+    assert k10_smem_bytes(lth, ltw, k, groups) <= _build.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("n_views,D,low,k", [
@@ -130,3 +188,59 @@ def test_cvc_low_maps_grid_limit():
     assert grid[2] == 256 * -(-256 // chunk) <= cvc_lowmaps.MAX_GRID_Z
     with pytest.raises(ValueError, match="exceed one launch's grid"):
         cvc_lowmaps.plan_chunks(2 * 40000, 256, *ZED_VGA[0], 5, 132)
+
+
+# ---- K6 (csrc/bt_cost.cu): tile, disparity chunk and shared memory --------
+
+@pytest.mark.parametrize("H,W,D,strip,d_chunk", [(375, 450, 64, 16, 32),
+                                                (1242, 2208, 256, 32, 64)], ids=["teddy", "2k"])
+def test_bt_cost_plan_at_the_shapes_driven(H, W, D, strip, d_chunk):
+    """SGBMConfig() at Teddy and 2K: 5x5 windows over 3 channels, int16 out,
+    60 output columns a block. 2K takes 32-row strips and 64 disparities a
+    block (68,864 bytes, three blocks an SM) and still fills the card three
+    times over; Teddy would not (96 blocks), so it takes the shortest shape."""
+    shape = bt_launch_shape(H, W, D, 5, 3, 2, 132)
+    assert (shape["strip"], shape["d_chunk"], shape["tile"]) == (strip, d_chunk, 60)
+    assert shape == bt_plan(5, 3, 2, strip, d_chunk)
+    assert bt_plan(5, 3, 2) == {"tile": 60, "d_chunk": 64, "run": 15, "strip": 32,
+                                "smem": 68864}
+    assert BT_BLOCKS_PER_SM * (shape["smem"] + 1024) <= _build.SM_SMEM_BYTES
+    grid = (-(-W // shape["tile"]), -(-D // shape["d_chunk"]), -(-H // shape["strip"]))
+    assert grid[2] <= 65535
+    blocks = grid[0] * grid[1] * grid[2]
+    assert (blocks >= BT_BLOCKS_PER_SM * 132) == (H > 1000)
+
+
+# (k, C, output bytes) of tests/test_torch_cuda.py's K6 shapes
+@pytest.mark.parametrize("k,C,out_bytes,d_chunk", [
+    (5, 3, 2, 64), (3, 3, 2, 64), (11, 3, 4, 64), (4, 1, 2, 64), (1, 3, 2, 64), (7, 3, 4, 64),
+    (2, 1, 2, 64), (25, 3, 4, 32), (9, 3, 2, 64), (64, 3, 4, 64), (15, 3, 4, 64),
+    (17, 3, 4, 32),
+])
+def test_bt_cost_plan_fits_a_block(k, C, out_bytes, d_chunk):
+    """Every window up to the kernel's 64 columns fits: 64 disparities a
+    block where the ring of k horizontal sums allows, else 32. The runs of
+    the window-sum step cover the tile, and the pixel-cost step's threads
+    cover the row's 64 columns and the chunk."""
+    shape = bt_plan(k, C, out_bytes)
+    assert shape["d_chunk"] == d_chunk
+    assert shape["tile"] == BT_COLUMNS - (k - 1) >= 1
+    groups = BT_THREADS // shape["d_chunk"]
+    assert shape["run"] == -(-shape["tile"] // groups)
+    assert BT_THREADS % BT_COLUMNS == 0
+    assert shape["d_chunk"] % (BT_THREADS // BT_COLUMNS) == 0
+    ring = out_bytes * k * shape["run"] * BT_THREADS
+    stage = 4 * 2 * 3 * C * (2 * BT_COLUMNS + shape["d_chunk"])
+    pixel = 4 * BT_COLUMNS * (shape["d_chunk"] + 1)
+    assert shape["smem"] == ring + stage + pixel <= _build.MAX_SMEM_BYTES
+
+
+def test_bt_cost_plan_refuses_what_no_instance_takes():
+    with pytest.raises(ValueError, match="block_size"):
+        bt_plan(65, 3, 2)
+    with pytest.raises(ValueError, match="instance"):
+        bt_plan(5, 3, 2, d_chunk=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        bt_plan(5, 200, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        bt_plan(25, 3, 4, d_chunk=64)

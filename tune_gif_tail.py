@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Time the kernels of the STEREO_GIF maps tail and their variants on one
-NVIDIA card: K2 (csrc/wta.cu), K4 (csrc/cvc_lowmaps.cu) and, because they
-run the same chain header (csrc/fgf_chain.cuh), K1 and K10.
+"""Time the kernels of the STEREO_GIF tails and their variants on one
+NVIDIA card: K2 (csrc/wta.cu), K4 (csrc/cvc_lowmaps.cu), K10
+(csrc/cvc_wta.cu) and, because it runs the same chain header
+(csrc/fgf_chain.cuh), K1.
 
-    python3 tune_gif_tail.py
+    python3 tune_gif_tail.py          # everything, ~1-2 min
+    python3 tune_gif_tail.py k10      # K10's variants alone (K4 as shipped beside them)
 
 Builds the four libraries as shipped, and wta.cu / cvc_lowmaps.cu once per
 variant of their -D knobs (K2: tile height, disparities per chunk, pixels
 per thread and the columns they tap, raw windows in flight, blocks an SM
 the registers are bounded for; K4: outputs per thread along the box axis,
-samples staged or gathered per disparity, threads a block), and times K4 at
-several chunk lengths. Every variant's output must equal the shipped kernel's bit for
-bit, and the shipped kernels their plain versions at the small shapes;
-prints CUDA-event times at chip_smoke.py's shapes (Teddy, ZED-VGA, 2K,
-Teddy at subsample=1). chip_smoke.py calls `wta_variant_ms` and
-`k4_variant_ms` for the few variants it reports. Needs one CUDA card and
-nvcc, like chip_smoke.py; writes nothing.
+samples staged or gathered per disparity, threads a block) and cvc_wta.cu
+once per variant of its (threads a block, output columns a tile, blocks an
+SM the registers are bounded for, the chain's outputs a thread), and times
+K4 at several chunk lengths and K10 at other tile heights and chain counts
+(run-time arguments). Every variant's output must equal the shipped
+kernel's bit for bit, and the shipped kernels their plain versions at the
+small shapes; prints CUDA-event times at chip_smoke.py's shapes (Teddy,
+ZED-VGA, 2K, Teddy at subsample=1). chip_smoke.py calls `wta_variant_ms`,
+`k4_variant_ms` and `k10_variant_ms` for the few variants it reports.
+Needs one CUDA card and nvcc, like chip_smoke.py; writes nothing.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 from primestereomatch_torch import kernels as K
 from primestereomatch_torch.kernels import _build
 from primestereomatch_torch.kernels.cvc_lowmaps import cost_args, plan_chunks
+from primestereomatch_torch.kernels.cvc_wta import launch as cvc_wta_launch
 from primestereomatch_torch.kernels.wta import TILE_X
 from primestereomatch_torch.ops.resize import linear_tables, low_window, nearest_table
 
@@ -43,6 +49,12 @@ WTA_VARIANTS = [(16, 8, 1, 2, 1, 3), (16, 8, 1, 2, 2, 3), (16, 8, 1, 2, 1, 4), (
 K4_VARIANTS = [(4, 1, 512), (4, 0, 512), (1, 1, 512), (2, 1, 512), (8, 1, 512), (4, 1, 256),
                (4, 1, 384), (4, 1, 1024)]
 K4_CHUNKS = (1, 4, 8, 16, 32)
+# K10: (threads a block, output columns a tile, blocks an SM the registers
+# are bounded for, the chain's outputs a thread along the box axis, output
+# rows a tile, chains at once); the shipped shape first (its rows and
+# groups are what kernels/cvc_wta.py::plan_tile picks at 2K and ZED-VGA)
+K10_VARIANTS = [(512, 128, 1, 4, 64, 2), (512, 128, 1, 4, 64, 1), (256, 64, 2, 4, 64, 1),
+                (512, 128, 1, 4, 32, 2)]
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -81,6 +93,12 @@ def build_k4(variants):
     return _build.build_variants("cvc_lowmaps", {
         v: [f"-DPSM_FGF_RV={v[0]}", f"-DPSM_K4_STAGE={v[1]}", f"-DPSM_K4_NT={v[2]}"]
         for v in variants})
+
+
+def build_k10(variants):
+    return _build.build_variants("cvc_wta", {
+        v[:4]: [f"-DPSM_K10_NT={v[0]}", f"-DPSM_K10_OTX={v[1]}", f"-DPSM_K10_MINB={v[2]}",
+                f"-DPSM_FGF_RV={v[3]}"] for v in variants})
 
 
 def run_wta(fn, var, guide, maps):
@@ -148,7 +166,26 @@ def k4_variant_ms(views, grds, stats, D, k, cost, variants, chunks=()) -> dict:
     return out
 
 
-def main() -> int:
+def k10_variant_ms(views, grds, stats, D, k, cost, variants=K10_VARIANTS) -> dict:
+    """{variant: ms} of K10, each held bitwise against the shipped kernel."""
+    want = K.cvc_wta(views, grds, stats, D, k, **cost)
+    fns = build_k10(variants)
+    out = {}
+    for var in variants:
+        fn, otx, rows, groups = fns[var[:4]], var[1], var[4], var[5]
+
+        def run():
+            return cvc_wta_launch(fn, views, grds, stats, D, k, rows, groups, **cost,
+                                  tile_x=otx)
+
+        if not torch.equal(run(), want):
+            raise AssertionError(f"K10 variant {var} differs from the shipped kernel")
+        out[var] = cuda_ms(run, iters=5, warmup=1)
+    return out
+
+
+def main(argv) -> int:
+    only_k10 = argv == ["k10"]       # K10's variants alone, at ZED-VGA and 2K
     if not torch.cuda.is_available():
         print("tune_gif_tail: needs a CUDA card", file=sys.stderr)
         return 1
@@ -163,10 +200,15 @@ def main() -> int:
                          check=True, capture_output=True, text=True).stdout.strip(), flush=True)
     names = ("lowmaps", "wta", "cvc_lowmaps", "cvc_wta")
     print(f"build of {names}: {K.build(names):.1f} s", flush=True)
-    build_wta(WTA_VARIANTS)     # the variants' libraries and their logs, ahead of the timings
-    build_k4(K4_VARIANTS)
+    if not only_k10:            # the variants' libraries and their logs, ahead of the timings
+        build_wta(WTA_VARIANTS)
+        build_k4(K4_VARIANTS)
+    build_k10(K10_VARIANTS)
     for key, log in _build.BUILD_LOGS.items():
         print(f"ptxas {key}: at most {resources(log)}", flush=True)
+        if key.startswith("cvc_wta"):     # per box size: its template instance's line
+            print("\n".join(f"  {line.strip()}" for line in log.splitlines()
+                            if "registers" in line or "spill" in line), flush=True)
 
     def inputs(cfg, left, right):
         views, grds = stacked_views(torch.as_tensor(left, device=dev)[None],
@@ -185,7 +227,8 @@ def main() -> int:
     # K1 and K2 at Teddy, 2K and Teddy at subsample=1 (a 17 x 17 box, ratio 1)
     for name, c, left, right in (("teddy", cfg, teddy.left_f32, teddy.right_f32),
                                  ("2k", cfg2k, left2k, right2k),
-                                 ("teddy_s1", cfg_s1, teddy.left_f32, teddy.right_f32)):
+                                 ("teddy_s1", cfg_s1, teddy.left_f32, teddy.right_f32)
+                                 )[:0 if only_k10 else 3]:
         views, grds, stats, cost = inputs(c, left, right)
         k = c.fgf_low_radius
         p = sampled_cost_volumes(views, grds, c.max_dis, tuple(stats.shape[-2:]), **cost)
@@ -219,8 +262,9 @@ def main() -> int:
         print(f"{name}: K4 as shipped: "
               f"{cuda_ms(lambda: K.cvc_low_maps(views, grds, stats, D, k, **cost)):.4f} ms",
               flush=True)
-        for (var, ch), ms in k4_variant_ms(views, grds, stats, D, k, cost, K4_VARIANTS,
-                                           K4_CHUNKS).items():
+        for (var, ch), ms in k4_variant_ms(views, grds, stats, D, k, cost,
+                                           K4_VARIANTS[:1 if only_k10 else None],
+                                           () if only_k10 else K4_CHUNKS).items():
             print(f"  K4 (RV, staged, threads) = {var}, chunk {ch}: {ms:.4f} ms, 0 values differ",
                   flush=True)
         two = K.upsample_wta(views, maps)
@@ -228,10 +272,14 @@ def main() -> int:
         if not torch.equal(K.cvc_wta(views, grds, stats, D, k, **cost), two):
             raise AssertionError(f"K10 differs from K4 -> K2 at {name}")
         ms = cuda_ms(lambda: K.cvc_wta(views, grds, stats, D, k, **cost), iters=5, warmup=1)
-        print(f"{name}: K10: {ms:.4f} ms, 0 px from K4 -> K2", flush=True)
+        print(f"{name}: K10 as shipped: {ms:.4f} ms, 0 px from K4 -> K2", flush=True)
+        for var, ms in k10_variant_ms(views, grds, stats, D, k, cost).items():
+            print(f"  K10 (threads, columns, blocks, RV, rows, chains) = {var}: {ms:.4f} ms, "
+                  f"0 px differ",
+                  flush=True)
         torch.cuda.empty_cache()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
