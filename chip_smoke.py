@@ -6,7 +6,7 @@
 Phases (each prints its lines; any failed check raises and exits non-zero):
 
   1. the card's name and power limit, as nvidia-smi prints them;
-  2. build the nine CUDA kernels from csrc/ (one nvcc per source, in
+  2. build the nine CUDA sources from csrc/ (one nvcc per source, in
      parallel) and print the build seconds and ptxas resource lines;
   3. parity on the card, each kernel against its plain PyTorch version on
      the same CUDA tensors: GIF K1-K3 at the Teddy shapes (D=64, 375x450,
@@ -25,7 +25,9 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      D=256: K7's uint16 group partials summed on the card against the
      plain int32 S, its int32 path (a P2 beyond the uint16 bound) against
      the plain S at that P2, K8 from the partials and from the int32 S
-     against the plain selection;
+     against the plain selection, K9's sweep (hook, rows, columns) twice
+     and its row and column scans alone against their plain versions, and
+     its changed flag against the labels;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after, and its kernels (and no others) asserted. GIF:
      Teddy and Cones end to end (K1, K2, K3), %BP(nonocc) within 0.3 of the
@@ -40,22 +42,26 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      meet the cv2-golden bounds of tests/test_sgbm_cv2_golden.py, then the
      2K pair with num_disparities=256, whose interior medians must be the
      field's 96 and 48 within 1; every SGBM frame launches K6 once, K7
-     twice (the partials route) and K8 once;
+     twice (the partials route), K8 once and K9 four times a host sync
+     (two launches a sweep, two sweeps a read of its changed flag);
   5. times with CUDA events (3 warm-up, 20 timed launches; 1 and 2 for
      the slow SGBM plain versions at 2K, 1 and 3 for the fused tails' plain
      versions at 2K; K3's plain version on the random 2K input runs once)
-     of each kernel and its plain version, K2's, K4's and K10's launch
+     of each kernel and its plain version, K1's, K2's, K4's and K10's launch
      shapes (tile, chunk, shared memory, ptxas registers) and their times
-     at 2K in a few shapes that were tried and rejected (tune_gif_tail.py
-     builds and times them), K6's launch shape and its times in the shapes
-     tried (tune_bt_cost.py), K3's bin-window passes per block,
+     in a few shapes that were tried and rejected (tune_gif_tail.py builds
+     and times them; K1's at Teddy and at subsample=1), K6's and K9's launch
+     shapes and their times in the shapes tried (tune_bt_cost.py,
+     tune_speckle.py), the speckle hook as the plain-torch ops it was
+     before K9 took it in, K3's bin-window passes per block,
      K7's bytes per (pixel, d) by its own count, the rate that follows,
      its time at four ring sizes and on 8 image rows alone, end-to-end frame
      times (host clock, synchronised; 10 frames for the 2K GIF paths), a
      torch.profiler pass over 5 frames per shape and path for the device
      time by kernel and the device's idle share, the speckle sweeps and
-     host syncs per SGBM frame, and peak device memory (one 2K frame on
-     the maps path and on the full path side by side);
+     host syncs (reads of K9's changed flag) per SGBM frame, and peak device
+     memory (one 2K frame on the maps path and on the full path side by
+     side);
   6. one JSON line listing the kernels, then the final status JSON line.
 
 Needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and the package
@@ -78,6 +84,7 @@ import torch
 import primestereomatch_torch as psm
 import tune_bt_cost
 import tune_gif_tail as tune
+import tune_speckle
 from primestereomatch_torch import kernels as K
 from primestereomatch_torch.kernels import _build, cvc_lowmaps, sgbm_scan
 from primestereomatch_torch.kernels.bt_cost import launch_shape as bt_launch_shape
@@ -85,6 +92,11 @@ from primestereomatch_torch.kernels.cvc_wta import THREADS as K10_THREADS
 from primestereomatch_torch.kernels.cvc_wta import TILE_X as K10_TILE_X
 from primestereomatch_torch.kernels.cvc_wta import plan_tile as k10_plan_tile
 from primestereomatch_torch.kernels.cvc_wta import smem_bytes as k10_smem_bytes
+from primestereomatch_torch.kernels.lowmaps import RUN as K1_RUN
+from primestereomatch_torch.kernels.lowmaps import TILE as K1_TILE
+from primestereomatch_torch.kernels.lowmaps import block_shape as k1_block_shape
+from primestereomatch_torch.kernels.lowmaps import chain_smem_bytes
+from primestereomatch_torch.kernels.speckle import launch_shape as speckle_launch_shape
 from primestereomatch_torch.kernels import wta as wta_mod
 from primestereomatch_torch.models.gif_pipeline import _to_u8, stacked_views
 from primestereomatch_torch.ops import sgbm as sgbm_ops
@@ -156,6 +168,24 @@ def timed_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def profiled_ms(fn, kernel: str = "", iters: int = ITERS) -> float:
+    """Device ms per call of `fn` in the kernels whose names hold `kernel`
+    (all of them by default), from torch.profiler: the kernels' own time,
+    without the host's gaps between launches that back-to-back CUDA events
+    see at small shapes. Device rows are those with no host time, as in
+    `profile_frames`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if kernel in e.key and e.self_cpu_time_total == 0) / 1e3 / iters
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
@@ -251,9 +281,39 @@ def bound_select(shape):
 
 
 def bound_sweep(m: torch.Tensor):
-    # one sweep = rows then columns: per pass 4 B label + 1 B link in, 4 B
-    # out, and 7 ops per pixel (two segmented steps and the final min)
-    return bound(2 * 9 * m.numel(), 2 * 7 * m.numel(), INT32_OPS_PER_S)
+    # one sweep (hook, row scan, column scan): the labels (the hook's
+    # neighbour reads are reads of the same labels) and the uint8 link mask
+    # read once, the labels written once, the 4-byte flag; per pixel 8 ops
+    # for the hook (4 link tests, 4 mins), 5 a scan axis (a forward and a
+    # backward segmented step of 2, the final min) and 1 for the flag
+    return bound(9 * m.numel() + 4, 19 * m.numel(), INT32_OPS_PER_S)
+
+
+def hook_as_torch_ops(labels: torch.Tensor, conns) -> torch.Tensor:
+    """The hook step as the speckle filter ran it before K9 took it in: 13
+    plain-torch ops on the four bool link planes (up, down, left, right),
+    timed for the K9 row's time before."""
+    big = labels.numel()
+    m = labels
+    for c, dim, off in zip(conns, (0, 0, 1, 1), (-1, 1, -1, 1)):
+        m = torch.minimum(m, torch.where(c, sgbm_ops._shifted(labels, dim, off, big), big))
+    return m
+
+
+def speckle_inputs(cfg, l_t: torch.Tensor, r_t: torch.Tensor):
+    """The speckle filter's start on the SGBM disparities of a uint8 pair on
+    the card: labels, the packed link mask and the four bool link planes."""
+    lf = sgbm_ops.sobel_xclip(l_t, cfg.pre_filter_cap)
+    rf = sgbm_ops.sobel_xclip(r_t, cfg.pre_filter_cap)
+    D, k = cfg.num_disparities, cfg.block_size
+    cost_bound = k * k * lf.shape[2] * 2 * cfg.pre_filter_cap
+    parts = K.sgbm_aggregate_partials(K.bt_cost(lf, rf, D, k, cost_bound), cfg.p1, cfg.p2,
+                                      cfg.num_directions, cost_bound)
+    disp = K.select_disparity_partials(parts, cfg.uniqueness_ratio, cfg.disp12_max_diff,
+                                       cfg.min_disparity)
+    _, labels, conns = sgbm_ops.speckle_graph(disp, 16 * cfg.speckle_range,
+                                              (cfg.min_disparity - 1) * 16)
+    return labels, K.pack_links(*conns), conns
 
 
 def synthetic_pair(H: int, W: int, seed: int, rect, d_fg: int, d_bg: int):
@@ -322,6 +382,19 @@ def parity(name: str, cfg, left, right, dev, report, with_wmf: bool = True):
         f"/{maps_k.numel()} (atol 2e-4, rtol 1e-3)")
     if not tol_ok:
         raise AssertionError(f"lowmaps disagrees with its plain version at {name}")
+    nt, rh, minb = k1_block_shape(k)
+    row["lowmaps"]["design"] = {
+        "tile": [K1_TILE] * 2, "threads": nt, "horizontal_run": rh, "blocks_per_sm": minb,
+        "smem_bytes": chain_smem_bytes(K1_TILE, K1_TILE, k, rh),
+        **tune.resources(_build.BUILD_LOGS["lowmaps"])}
+    if name != "2k":
+        # block shapes tried (tune_gif_tail.py; each bitwise the shipped kernel)
+        row["lowmaps"]["design"]["tried_ms"] = {
+            f"{a} threads, RH {b}, {c} blocks an SM, {d} d a block, RV {e}": ms
+            for (a, b, c, d, e), ms in tune.k1_variant_ms(
+                p2, stats, k, [v for v in tune.K1_VARIANTS if v != (nt, rh, minb, 1, K1_RUN)]
+            ).items()}
+    log(f"design {name} lowmaps: {row['lowmaps']['design']}")
 
     d_chunk = 16 if D > 64 else None
     disp_k = K.upsample_wta(g2, maps_p)
@@ -460,13 +533,15 @@ def fused_parity(name: str, cfg, left, right, dev, report):
                                  "its plain version")
         # shapes tried and rejected: one disparity a block, samples gathered
         # per disparity, one output per thread along the box axis, 256 threads
-        tried = tune.k4_variant_ms(views, grds, stats, D, k, cost,
-                                   [(4, 1, 512), (4, 0, 512), (1, 1, 512), (4, 1, 256)], (1,))
+        tried = tune.k4_variant_ms(
+            views, grds, stats, D, k, cost,
+            [(4, 1, 512, 1), (4, 0, 512, 1), (1, 1, 512, 1), (4, 1, 256, 1), (4, 1, 512, 4)], (1,))
         row["cvc_lowmaps"]["design"]["rejected_ms"] = {
-            "one_disparity_a_block": tried[((4, 1, 512), 1)],
-            "samples_not_staged": tried[((4, 0, 512), chunk)],
-            "one_output_a_thread": tried[((1, 1, 512), chunk)],
-            "256_threads_a_block": tried[((4, 1, 256), chunk)]}
+            "one_disparity_a_block": tried[((4, 1, 512, 1), 1)],
+            "samples_not_staged": tried[((4, 0, 512, 1), chunk)],
+            "one_output_a_thread": tried[((1, 1, 512, 1), chunk)],
+            "256_threads_a_block": tried[((4, 1, 256, 1), chunk)],
+            "4_outputs_a_thread_in_the_horizontal_passes": tried[((4, 1, 512, 4), chunk)]}
         log(f"tried {name} cvc_lowmaps (bitwise the shipped kernel): "
             f"{row['cvc_lowmaps']['design']['rejected_ms']} ms")
 
@@ -578,12 +653,21 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
     check("select", [(disp, disp_p), (K.select_disparity(S, *sel), disp_p)],
           f"(H,W,D)={tuple(S.shape)} uniq/d12/minD={sel}, from the partials and from the "
           f"int32 S")
-    _, labels, (conn_up, _, conn_lf, _) = sgbm_ops.speckle_graph(
-        disp, 16 * cfg.speckle_range, (cfg.min_disparity - 1) * 16)
-    c_lf, c_up = conn_lf.to(torch.uint8), conn_up.to(torch.uint8)
-    check("speckle", [(K.segmin_sweep(labels, c, ax), K.segmin_sweep_plain(labels, c, ax))
-                      for c, ax in ((c_lf, 1), (c_up, 0))],
-          f"(H,W)={tuple(labels.shape)} rows and columns")
+    _, labels, conns = sgbm_ops.speckle_graph(disp, 16 * cfg.speckle_range,
+                                              (cfg.min_disparity - 1) * 16)
+    links = K.pack_links(*conns)
+    changed = torch.zeros(1, dtype=torch.int32, device=dev)
+    swept = K.speckle_sweep(labels, links, changed, 1)
+    # the sweep, a second sweep, and the TPU kernel's scan alone on each axis
+    check("speckle", [(swept, K.speckle_sweep_plain(labels, links)),
+                      (K.speckle_sweep(swept, links), K.speckle_sweep_plain(swept, links))]
+          + [(K.segmin_sweep(labels, c.to(torch.uint8), ax),
+              K.segmin_sweep_plain(labels, c.to(torch.uint8), ax))
+             for c, ax in ((conns[2], 1), (conns[0], 0))],
+          f"(H,W)={tuple(labels.shape)} two sweeps (hook, rows, columns), the row and column "
+          f"scans alone")
+    if (int(changed.item()) == 1) != bool((swept != labels).any()):
+        raise AssertionError(f"K9's changed flag disagrees with the labels at {name}")
 
     slow = D > 64     # the plain versions' Python loops run long at 2K
     timing = {
@@ -595,10 +679,9 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
                       bound_scan(cost, nd)),
         "select": (lambda: K.select_disparity_partials(parts, *sel),
                    lambda: K.select_disparity_plain(S, *sel), bound_select(S.shape)),
-        # one sweep: the row launch, then the column launch
-        "speckle": (lambda: (K.segmin_sweep(labels, c_lf, 1), K.segmin_sweep(labels, c_up, 0)),
-                    lambda: (K.segmin_sweep_plain(labels, c_lf, 1),
-                             K.segmin_sweep_plain(labels, c_up, 0)),
+        # one sweep: the row launch (with the hook), then the column launch
+        "speckle": (lambda: K.speckle_sweep(labels, links, changed, 1),
+                    lambda: K.speckle_sweep_plain(labels, links, changed, 1),
                     bound_sweep(labels)),
     }
     for kname, (fk, fp, (b_ms, b_by)) in timing.items():
@@ -609,6 +692,27 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
         r = row[kname]
         log(f"time {name} {kname}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.5f} ms ({b_by}), {b_ms / r['ms']:.1%} of bound")
+    # K9: its device time alone (the wrapper's host time exceeds it at
+    # Teddy), the hook as the plain-torch ops it was before (for the time
+    # before), the TPU kernel's scan alone on each axis, the launch shape and
+    # the shapes and staging depths tried (tune_speckle.py; each bitwise the
+    # plain version)
+    sp = row["speckle"]
+    sp["device_ms"] = profiled_ms(lambda: K.speckle_sweep(labels, links, changed, 1), "speckle_")
+    sp["hook_plain_ops_ms"] = cuda_ms(lambda: hook_as_torch_ops(labels, conns))
+    sp["hook_plain_ops_device_ms"] = profiled_ms(lambda: hook_as_torch_ops(labels, conns))
+    sp["segmin_ms"] = {ax: cuda_ms(lambda: K.segmin_sweep(labels, c.to(torch.uint8), ax))
+                       for c, ax in ((conns[2], 1), (conns[0], 0))}
+    sp["design"] = {"shape": list(speckle_launch_shape(*labels.shape)),
+                    **tune.resources(_build.BUILD_LOGS["speckle"]),
+                    "tried_ms": {f"{a} rows of {b} warps, {c} columns of {d} warps": ms
+                                 for (a, b, c, d), ms in
+                                 tune_speckle.variant_ms(labels, links).items()},
+                    "staging_depth_ms": tune_speckle.depth_ms(labels, links)}
+    log(f"time {name} speckle: device time (profiler) {sp['device_ms']:.4f} ms a sweep; the hook "
+        f"as plain-torch ops {sp['hook_plain_ops_ms']:.4f} ms, device time "
+        f"{sp['hook_plain_ops_device_ms']:.4f} ms; "
+        f"the scans alone (axis: ms) {sp['segmin_ms']}; design {sp['design']}")
     # K7's own traffic and the rate that follows; its int32 entry and K8's;
     # the ring of pixels ahead at four sizes (bytes of shared memory a warp)
     scan, n = row["sgbm_scan"], cost.numel()
@@ -729,7 +833,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     build_secs = K.build()
-    log(f"build: {build_secs:.1f} s for {len(_build.NAMES)} kernels (nvcc in parallel)")
+    log(f"build: {build_secs:.1f} s for {len(_build.SOURCES)} sources (nvcc in parallel)")
     for n, text in _build.BUILD_LOGS.items():
         log(f"ptxas {n}: at most {tune.resources(text)} over its kernels")
 
@@ -847,12 +951,13 @@ def main() -> int:
     souts, sper_frame = {}, {}
     for n, (l_t, r_t) in sframes.items():
         before = dict(_build.LAUNCHES)
+        checks = sgbm_ops.SPECKLE_CHECKS["count"]
         souts[n] = psm.stereo_sgbm_forward(l_t, r_t, scfg2k if n == "2k" else scfg, device=dev)
         sper_frame[n] = {k: _build.LAUNCHES[k] - before[k] for k in SGBM_KERNELS}
-        # a sweep is two K9 launches; the filter syncs once per 2 sweeps
-        # (its default steps_per_check), to test for convergence
+        # a sweep is two K9 launches; the filter reads its changed flag (one
+        # host sync) once per 2 sweeps (its default steps_per_check)
         sper_frame[n]["speckle_sweeps"] = sper_frame[n]["speckle"] // 2
-        sper_frame[n]["host_syncs"] = sper_frame[n]["speckle"] // 4
+        sper_frame[n]["host_syncs"] = sgbm_ops.SPECKLE_CHECKS["count"] - checks
     torch.cuda.synchronize()
     slaunches = {k: _build.LAUNCHES[k] for k in SGBM_KERNELS}
     log(f"SGBM main path launches: {slaunches}; per frame: {sper_frame}")
@@ -860,9 +965,11 @@ def main() -> int:
         raise AssertionError(f"a kernel of the SGBM path never launched: {slaunches}")
     for n, per in sper_frame.items():
         # the partials route: K6 once, K7 a family of each group per launch,
-        # K8 once; K9 two launches a sweep, four sweeps a check
-        if (per["bt_cost"], per["sgbm_scan"], per["select"]) != (1, 2, 1) or per["speckle"] % 4:
-            raise AssertionError(f"SGBM {n} launched {per}, expected K6 1, K7 2, K8 1")
+        # K8 once; K9 two launches a sweep, two sweeps a check
+        if ((per["bt_cost"], per["sgbm_scan"], per["select"]) != (1, 2, 1)
+                or per["speckle"] != 4 * per["host_syncs"] or not per["host_syncs"]):
+            raise AssertionError(f"SGBM {n} launched {per}, expected K6 1, K7 2, K8 1, K9 4 a "
+                                 f"host sync")
     if any(v for k, v in _build.LAUNCHES.items() if k not in SGBM_KERNELS):
         raise AssertionError(f"the SGBM path launched a GIF kernel: {_build.LAUNCHES}")
 
@@ -917,7 +1024,7 @@ def main() -> int:
                 "joint_wmf_kernel": "wmf", "wmf_weights_kernel": "wmf"}
     sgbm_tags = {"bt_cost_kernel": "bt_cost",
                  "sgm_scan_kernel": "sgbm_scan", "select_kernel": "select",
-                 "segmin_": "speckle"}
+                 "speckle_rows_kernel": "speckle", "speckle_cols_kernel": "speckle"}
     gif_runs = {
         "teddy": (frames["Teddy"], cfg, ITERS, "both views + JointWMF"),
         "2k": (frames["2k"], cfg2k, 10, "K4 -> K2 -> K3"),
@@ -983,6 +1090,7 @@ def main() -> int:
             g = report["teddy_s1"][kname]
             row["at_generic"] = {**{key: g[key] for key in timed},
                                  "mismatch": g.get("mismatch", g["n_differ"] / g["n"]),
+                                 **({"design": g["design"]} if "design" in g else {}),
                                  "at": "teddy 375x450 D=64, subsample=1"}
         if kname == "wmf":
             g = report["2k"]["wmf_random"]
@@ -994,6 +1102,10 @@ def main() -> int:
                 row[f"passes_{key}"] = {"mean": rep_k["passes_mean"], "max": rep_k["passes_max"]}
         if kname in ("sgbm_scan", "select"):
             extra = [key for key in t if key.startswith(("int32_", "bytes_", "tb_", "ring_", "rows8_"))]
+            row["more"] = {"teddy": {key: t[key] for key in extra},
+                           "2k": {key: k2[key] for key in extra}}
+        if kname == "speckle":
+            extra = ("device_ms", "hook_plain_ops_ms", "hook_plain_ops_device_ms", "segmin_ms")
             row["more"] = {"teddy": {key: t[key] for key in extra},
                            "2k": {key: k2[key] for key in extra}}
         if kname in GIF_KERNELS:

@@ -51,6 +51,11 @@
 #ifndef PSM_K4_NT
 #define PSM_K4_NT 512
 #endif
+// outputs a thread in the chain's horizontal passes at a compile-time box
+// (fgf_chain.cuh::chain_blocked; a timing variant: 1 ships)
+#ifndef PSM_K4_RH
+#define PSM_K4_RH 1
+#endif
 
 namespace {
 
@@ -70,9 +75,9 @@ struct StoreMaps {
 // Floats of dynamic shared memory: the chain's and, where the samples are
 // staged, the local view (one float4 a band entry) and the entry's packed
 // (row, column).
-inline size_t smem_floats(int k, bool stage) {
+inline size_t smem_floats(int k, bool stage, int rh) {
   const int M = 2 * (k / 2);
-  return fgf::chain_floats(TH, TW, k) +
+  return fgf::chain_floats(TH, TW, k, rh) +
          (stage ? 5 * (size_t)(TH + 2 * M) * (TW + 2 * M) : 0);
 }
 
@@ -86,10 +91,11 @@ cvc_lowmaps_kernel(const float* __restrict__ views, const float* __restrict__ gr
                    int D, int H, int W, int h, int w, int k, float inv_k2,
                    int chunk, int nchunks, fgf::CostParams cp) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int RH = K > 0 ? PSM_K4_RH : 1;
   const int kk = K > 0 ? K : k;       // the box size, at compile time where K is
   const int M = 2 * (kk / 2);
   const int nb = (TH + 2 * M) * (TW + 2 * M);
-  float4* lv = reinterpret_cast<float4*>(smem + fgf::chain_floats(TH, TW, kk));
+  float4* lv = reinterpret_cast<float4*>(smem + fgf::chain_floats(TH, TW, kk, RH));
   unsigned* pos = reinterpret_cast<unsigned*>(lv + nb);   // row << 16 | column, full resolution
 
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
@@ -147,8 +153,8 @@ cvc_lowmaps_kernel(const float* __restrict__ views, const float* __restrict__ gr
     const StoreMaps store{
         out + ((size_t)v * 4 * D + d) * hw + (size_t)y0 * w + x0,
         (size_t)D * hw, w};
-    fgf::chain<NTHREADS, K>(smem, st, h, w, kk, inv_k2, TH, TW, y0, x0, oh, ow,
-                            tid, store);
+    fgf::chain<NTHREADS, K, StoreMaps, fgf::BlockSync, RH>(
+        smem, st, h, w, kk, inv_k2, TH, TW, y0, x0, oh, ow, tid, store);
     __syncthreads();   // the last step has read where the band lies
   }
 }
@@ -159,7 +165,7 @@ template <int K, bool STAGE>
 int launch(const float* views, const float* grds, const float* stats, const int* yi,
            const int* xi, float* out, int B, int D, int H, int W, int h, int w, int k,
            float inv_k2, int chunk, fgf::CostParams cp, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(k, STAGE);
+  const size_t smem = sizeof(float) * smem_floats(k, STAGE, K > 0 ? PSM_K4_RH : 1);
   cudaError_t err = cudaFuncSetAttribute(
       cvc_lowmaps_kernel<K, STAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -183,7 +189,7 @@ extern "C" int psm_cvc_lowmaps(const float* views, const float* grds,
                                float tau2, void* stream) {
   const fgf::CostParams cp{alpha, one_minus_alpha, border, tau1, tau2};
   cudaStream_t s = (cudaStream_t)stream;
-  const bool stage = PSM_K4_STAGE && sizeof(float) * smem_floats(k, true) <= MAX_SMEM;
+  const bool stage = PSM_K4_STAGE && sizeof(float) * smem_floats(k, true, 1) <= MAX_SMEM;
 #define PSM_CVC_LOWMAPS_LAUNCH(K, STAGE)                                                \
   return launch<K, STAGE>(views, grds, stats, yi, xi, out, B, D, H, W, h, w, k, inv_k2, \
                           chunk, cp, s)

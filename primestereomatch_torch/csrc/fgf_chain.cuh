@@ -26,9 +26,14 @@
 //     consecutive outputs along the box axis from K + RV - 1 taps held in
 //     registers: each output still adds its own K taps from the first in
 //     order, but the loads per output fall from K to (K + RV - 1) / RV (5
-//     where there were 17 at K = 17). In the two horizontal passes
-//     neighbouring threads take neighbouring columns (conflict-free
-//     128-bit loads, coalesced statistic reads and map writes).
+//     where there were 17 at K = 17). The two horizontal passes either
+//     take one output a thread, neighbouring threads on neighbouring
+//     columns (`chain`, RH = 1: conflict-free 128-bit loads, coalesced
+//     statistic reads and map writes), or RH outputs a thread from
+//     K + RH - 1 taps in registers (`chain_blocked`, which K1 runs): its
+//     lanes take neighbouring rows at odd row pitches, and the statistic
+//     reads and map writes follow in passes of their own over shared
+//     memory, lanes again on neighbouring columns.
 //
 // Numerics follow ops/guided_filter.py step for step: every box sums its k
 // taps in order, rows first and then columns, and scales by 1 / (k * k);
@@ -67,14 +72,24 @@ __device__ __forceinline__ float4 add4(const float4 a, const float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+__host__ __device__ inline size_t max3(size_t a, size_t b, size_t c) {
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+
 // Floats of shared memory the chain needs for tiles of th x tw and k x k
-// boxes: the band, the row sums and the first-level maps, one float4 per
-// entry; RV - 1 more rows of maps that the last vertical run reads past
-// its outputs and drops.
-__host__ __device__ inline size_t chain_floats(int th, int tw, int k) {
+// boxes, one float4 per entry. With rh = 1 (one output a thread in the
+// horizontal passes): the band, the row sums and the first-level maps, with
+// RV - 1 more rows of maps that the last vertical run reads past its outputs
+// and drops. With rh > 1 two regions, each reused as the chain goes on: the
+// band's (band, then the first-level box sums, then the sums over mid's
+// rows) and one more (row sums, then the maps, then the final box sums);
+// the rows the horizontal passes write have an odd pitch.
+__host__ __device__ inline size_t chain_floats(int th, int tw, int k, int rh = 1) {
   const int M = 2 * (k / 2);
   const size_t bh = th + 2 * M, bw = tw + 2 * M, mh = th + M, mw = tw + M;
-  return 4 * (bh * bw + mh * bw + (mh + RV - 1) * mw);
+  if (rh == 1) return 4 * (bh * bw + mh * bw + (mh + RV - 1) * mw);
+  // rh more entries: a horizontal run past the last row sums reads them
+  return 4 * (bh * bw + max3(mh * (bw | 1), (mh + RV - 1) * mw, th * (size_t)(tw | 1)) + rh);
 }
 
 // Band entry i -> the in-image low-res pixel whose values it holds. The
@@ -125,19 +140,197 @@ struct BlockSync {
   __device__ __forceinline__ void operator()() const { __syncthreads(); }
 };
 
+// Rows [r_lo, r_hi) of dst (pitch dp) = sums over k rows of src (pitch sp):
+// dst row r sums src rows r .. r + k - 1, over ncols columns; R rows a
+// thread, neighbouring lanes on neighbouring columns.
+template <int NT, int K, int R>
+__device__ __forceinline__ void column_sums(const float4* src, int sp, float4* dst, int dp,
+                                            int r_lo, int r_hi, int ncols, int k, int tid) {
+  const FastDiv by_n(ncols);
+  const int items = ((r_hi - r_lo + R - 1) / R) * ncols;
+  for (int it = tid; it < items; it += NT) {
+    const int g = by_n.div(it), c = it - g * ncols;
+    const int r0 = r_lo + g * R;
+    float4 s[R];
+    run_sums<K, R>(src + r0 * sp + c, sp, k, s);
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (r0 + j < r_hi) dst[(r0 + j) * dp + c] = s[j];
+  }
+}
+
+// The nine statistics the solve reads at pixel offset o: the box means and
+// the inverse covariance rr rg rb gg gb bb.
+__device__ __forceinline__ void load_stats(const float* __restrict__ st, size_t hw, size_t o,
+                                           float (&m)[9]) {
+#pragma unroll
+  for (int j = 0; j < 9; ++j) m[j] = st[(3 + j) * hw + o];
+}
+
+// The first-level maps (a_r, a_g, a_b, b) of an in-image pixel from its box
+// sums s of (p, ch_c * p) and its statistics, in the plain version's term
+// order.
+__device__ __forceinline__ float4 solve(const float4 s, const float (&m)[9], float inv_k2) {
+  const float mr = m[0], mg = m[1], mb = m[2];
+  const float irr = m[3], irg = m[4], irb = m[5];
+  const float igg = m[6], igb = m[7], ibb = m[8];
+  const float mp = s.x * inv_k2;
+  const float cov0 = s.y * inv_k2 - mr * mp;
+  const float cov1 = s.z * inv_k2 - mg * mp;
+  const float cov2 = s.w * inv_k2 - mb * mp;
+  const float a_r = irr * cov0 + irg * cov1 + irb * cov2;
+  const float a_g = irg * cov0 + igg * cov1 + igb * cov2;
+  const float a_b = irb * cov0 + igb * cov1 + ibb * cov2;
+  const float bb = mp - a_r * mr - a_g * mg - a_b * mb;
+  return make_float4(a_r, a_g, a_b, bb);
+}
+
+// Stores the map m of mid entry (r, q), whose pixel (cy, cx) lies in the
+// image, at its own entry and, where `edge`, at the entries that reflect
+// onto it (across the image's first and last row and column).
+__device__ __forceinline__ void store_mid(float4* mid, int mw, int nmh, int nmw, int h,
+                                          int w, int my0, int mx0, int r, int q, bool edge,
+                                          const float4 m) {
+  if (!edge) {
+    mid[r * mw + q] = m;
+    return;
+  }
+  const int cy = my0 + r, cx = mx0 + q;
+  const int rows[3] = {r, -cy - my0, 2 * h - 2 - cy - my0};
+  const int cols[3] = {q, -cx - mx0, 2 * w - 2 - cx - mx0};
+  const bool rok[3] = {true, cy >= 1 && rows[1] >= 0, cy <= h - 2 && rows[2] < nmh};
+  const bool cok[3] = {true, cx >= 1 && cols[1] >= 0, cx <= w - 2 && cols[2] < nmw};
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+      if (rok[a] && cok[b]) mid[rows[a] * mw + cols[b]] = m;
+}
+
+// The chain with K at compile time and RH outputs a thread in the two
+// horizontal passes, from K + RH - 1 taps in registers, each output still
+// the sum of its own K taps in order. Their lanes take neighbouring rows, so
+// each horizontal pass writes its sums to shared memory at an odd row
+// pitch (conflict-free 128-bit accesses), and a pass whose lanes take
+// neighbouring columns follows it: the solve (coalesced statistic reads) and
+// the emits (coalesced map writes). Shared memory as chain_floats(th, tw,
+// K, RH) lays it out: the band's region holds the band, then the
+// first-level box sums, then the sums over mid's rows; the other region
+// the row sums, then the maps, then the final box sums.
+template <int NT, int K, int RH, class Emit, class Sync>
+__device__ __forceinline__ void chain_blocked(float* smem, const float* __restrict__ st,
+                                              int h, int w, float inv_k2, int th, int tw,
+                                              int y0, int x0, int oh, int ow, int tid,
+                                              Emit emit, Sync sync) {
+  constexpr int m1 = K / 2, M = 2 * m1;
+  const int bh = th + 2 * M, bw = tw + 2 * M;
+  const int mw = tw + 2 * m1;
+  const int bwp = bw | 1, mwp = mw | 1, twp = tw | 1;
+  float4* band = reinterpret_cast<float4*>(smem);
+  float4* rs = band + bh * bw;  // sums over the band's rows, pitch bwp
+  float4* bs = band;            // first-level box sums, pitch mwp
+  float4* mid = rs;             // a_r a_g a_b b, pitch mw
+  float4* rs2 = band;           // sums over mid's rows, pitch mwp
+  float4* fs = rs;              // final box sums, pitch twp
+  const size_t hw = (size_t)h * w;
+  const int nmh = oh + 2 * m1, nmw = ow + 2 * m1;
+  const int nbw = ow + 2 * M;
+  const int my0 = y0 - m1, mx0 = x0 - m1;
+  const int ra = max(0, -my0), rb = min(nmh, h - my0);
+  const int qa = max(0, -mx0), qb = min(nmw, w - mx0);
+  const int nr = rb - ra, nq = qb - qa;
+  const bool edge = nr < nmh || nq < nmw;
+  sync();
+
+  // sums over K band rows, for the in-image mid rows
+  column_sums<NT, K, RV>(band, bw, rs, bwp, ra, rb, nbw, K, tid);
+  sync();
+
+  // first-level box sums at the in-image mid entries: RH along a row a
+  // thread, neighbouring lanes on neighbouring rows
+  {
+    const FastDiv by_nr(nr);
+    const int items = ((nq + RH - 1) / RH) * nr;
+    for (int it = tid; it < items; it += NT) {
+      const int g = by_nr.div(it), r = ra + it - g * nr;
+      const int q0 = qa + g * RH;
+      float4 s[RH];
+      run_sums<K, RH>(rs + r * bwp + q0, 1, K, s);
+#pragma unroll
+      for (int j = 0; j < RH; ++j)
+        if (q0 + j < qb) bs[r * mwp + q0 + j] = s[j];
+    }
+  }
+  sync();
+
+  // the first-level maps, each stored at its own entry and at the entries
+  // that reflect onto it
+  {
+    const FastDiv by_nq(nq);
+    for (int it = tid; it < nr * nq; it += NT) {
+      const int rr = by_nq.div(it);
+      const int r = ra + rr, q = qa + it - rr * nq;
+      float m[9];
+      load_stats(st, hw, (size_t)(my0 + r) * w + mx0 + q, m);
+      store_mid(mid, mw, nmh, nmw, h, w, my0, mx0, r, q, edge,
+                solve(bs[r * mwp + q], m, inv_k2));
+    }
+  }
+  sync();
+
+  // second box over the maps: sums over K mid rows
+  column_sums<NT, K, RV>(mid, mw, rs2, mwp, 0, oh, nmw, K, tid);
+  sync();
+
+  // final box sums: RH along a row a thread, lanes on neighbouring rows
+  {
+    const FastDiv by_oh(oh);
+    const int items = ((ow + RH - 1) / RH) * oh;
+    for (int it = tid; it < items; it += NT) {
+      const int g = by_oh.div(it), ty = it - g * oh;
+      const int tx0 = g * RH;
+      float4 s[RH];
+      run_sums<K, RH>(rs2 + ty * mwp + tx0, 1, K, s);
+#pragma unroll
+      for (int j = 0; j < RH; ++j)
+        if (tx0 + j < ow) fs[ty * twp + tx0 + j] = s[j];
+    }
+  }
+  sync();
+
+  {
+    const FastDiv by_ow(ow);
+    for (int it = tid; it < oh * ow; it += NT) {
+      const int ty = by_ow.div(it), tx = it - ty * ow;
+      const float4 s = fs[ty * twp + tx];
+      emit(0, ty, tx, s.x * inv_k2);
+      emit(1, ty, tx, s.y * inv_k2);
+      emit(2, ty, tx, s.z * inv_k2);
+      emit(3, ty, tx, s.w * inv_k2);
+    }
+  }
+}
+
 // The chain over a filled band. `smem` is the block's chain_floats(th, tw,
-// k) floats (16-byte aligned), the band first; `st` the view's 12
+// k, RH) floats (16-byte aligned), the band first; `st` the view's 12
 // statistic planes (h x w each: channels, box means, inverse covariance rr
 // rg rb gg gb bb); (oh, ow) the part of the tile that holds outputs. K is
-// the box size at compile time, or 0 for the run-time `k`. Every one of
+// the box size at compile time, or 0 for the run-time `k`. RH: outputs a
+// thread produces in the horizontal passes (1 with K = 0). Every one of
 // the NT threads that share `sync` calls it (tid in [0, NT)); it
 // synchronises before it reads the band and between its steps, not after
-// the last `emit` (which reads where the band lay).
-template <int NT, int K, class Emit, class Sync = BlockSync>
+// the last `emit` (which reads where the band lay, and with RH > 1 where
+// the row sums lay).
+template <int NT, int K, class Emit, class Sync = BlockSync, int RH = 1>
 __device__ __forceinline__ void chain(float* smem, const float* __restrict__ st,
                                       int h, int w, int k, float inv_k2, int th,
                                       int tw, int y0, int x0, int oh, int ow,
                                       int tid, Emit emit, Sync sync = Sync()) {
+  if constexpr (K > 0 && RH > 1) {
+    chain_blocked<NT, K, RH>(smem, st, h, w, inv_k2, th, tw, y0, x0, oh, ow, tid, emit,
+                             sync);
+    return;
+  }
   constexpr int R = K > 0 ? RV : 1;
   const int kk = K > 0 ? K : k;
   const int m1 = kk / 2;
@@ -160,19 +353,7 @@ __device__ __forceinline__ void chain(float* smem, const float* __restrict__ st,
   sync();
 
   // sums over k band rows, for the in-image mid rows: R rows a thread
-  {
-    const FastDiv by_nbw(nbw);
-    const int items = ((nr + R - 1) / R) * nbw;
-    for (int it = tid; it < items; it += NT) {
-      const int g = by_nbw.div(it), jx = it - g * nbw;
-      const int r0 = ra + g * R;
-      float4 s[R];
-      run_sums<K, R>(band + r0 * bw + jx, bw, kk, s);
-#pragma unroll
-      for (int j = 0; j < R; ++j)
-        if (r0 + j < rb) rs[(r0 + j) * bw + jx] = s[j];
-    }
-  }
+  column_sums<NT, K, R>(band, bw, rs, bw, ra, rb, nbw, kk, tid);
   sync();
 
   // first-level maps at the in-image pixels (my0 + r, mx0 + q), each stored
@@ -184,52 +365,15 @@ __device__ __forceinline__ void chain(float* smem, const float* __restrict__ st,
       const int r = ra + rr, q = qa + it - rr * nq;
       float4 s[1];
       run_sums<K, 1>(rs + r * bw + q, 1, kk, s);
-      const int cy = my0 + r, cx = mx0 + q;
-      const size_t o = (size_t)cy * w + cx;
-      const float mr = st[3 * hw + o], mg = st[4 * hw + o], mb = st[5 * hw + o];
-      const float irr = st[6 * hw + o], irg = st[7 * hw + o], irb = st[8 * hw + o];
-      const float igg = st[9 * hw + o], igb = st[10 * hw + o], ibb = st[11 * hw + o];
-      const float mp = s[0].x * inv_k2;
-      const float cov0 = s[0].y * inv_k2 - mr * mp;
-      const float cov1 = s[0].z * inv_k2 - mg * mp;
-      const float cov2 = s[0].w * inv_k2 - mb * mp;
-      const float a_r = irr * cov0 + irg * cov1 + irb * cov2;
-      const float a_g = irg * cov0 + igg * cov1 + igb * cov2;
-      const float a_b = irb * cov0 + igb * cov1 + ibb * cov2;
-      const float bb = mp - a_r * mr - a_g * mg - a_b * mb;
-      const float4 m = make_float4(a_r, a_g, a_b, bb);
-      if (!edge) {
-        mid[r * mw + q] = m;
-        continue;
-      }
-      // mirrors across the image's first and last row and column
-      const int rows[3] = {r, -cy - my0, 2 * h - 2 - cy - my0};
-      const int cols[3] = {q, -cx - mx0, 2 * w - 2 - cx - mx0};
-      const bool rok[3] = {true, cy >= 1 && rows[1] >= 0, cy <= h - 2 && rows[2] < nmh};
-      const bool cok[3] = {true, cx >= 1 && cols[1] >= 0, cx <= w - 2 && cols[2] < nmw};
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-#pragma unroll
-        for (int b = 0; b < 3; ++b)
-          if (rok[a] && cok[b]) mid[rows[a] * mw + cols[b]] = m;
+      float m[9];
+      load_stats(st, hw, (size_t)(my0 + r) * w + mx0 + q, m);
+      store_mid(mid, mw, nmh, nmw, h, w, my0, mx0, r, q, edge, solve(s[0], m, inv_k2));
     }
   }
   sync();
 
   // second box over the maps: sums over k mid rows, R rows a thread
-  {
-    const FastDiv by_nmw(nmw);
-    const int items = ((oh + R - 1) / R) * nmw;
-    for (int it = tid; it < items; it += NT) {
-      const int g = by_nmw.div(it), q = it - g * nmw;
-      const int ty0 = g * R;
-      float4 s[R];
-      run_sums<K, R>(mid + ty0 * mw + q, mw, kk, s);
-#pragma unroll
-      for (int j = 0; j < R; ++j)
-        if (ty0 + j < oh) rs2[(ty0 + j) * mw + q] = s[j];
-    }
-  }
+  column_sums<NT, K, R>(mid, mw, rs2, mw, 0, oh, nmw, kk, tid);
   sync();
 
   {

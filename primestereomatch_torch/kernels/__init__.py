@@ -28,8 +28,11 @@ from primestereomatch_torch.kernels.lowmaps import (  # noqa: F401
     low_maps_plain,
 )
 from primestereomatch_torch.kernels.speckle import (  # noqa: F401
+    pack_links,
     segmin_sweep,
     segmin_sweep_plain,
+    speckle_sweep,
+    speckle_sweep_plain,
 )
 from primestereomatch_torch.kernels.bt_cost import (  # noqa: F401
     bt_cost,

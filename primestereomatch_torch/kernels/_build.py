@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels.
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
-Hopper (`sm_90a`) into its own shared library, loaded with ctypes. The
+Hopper (`sm_90a`) into its own shared library, loaded with ctypes (one
+source may hold the entries of two kernels: `segmin` is in `speckle.cu`). The
 build runs at first use, from the sources in the package only, into
 `build/torch_kernels/` beside the package; a library's file name carries
 a hash of its source, the shared headers (`csrc/*.cuh`) and the flags, so
@@ -52,9 +53,13 @@ _ARGTYPES = {
     "sgbm_scan": ("psm_sgm_scan",
                   [_VP, _I, _I] + [_VP, _I, _I, _I, _I] * 2 + [_I] * 6 + [_VP]),
     "select": ("psm_select_disparity", [_VP, _VP, _I, _VP] + [_I] * 6 + [_VP]),
-    "speckle": ("psm_segmin_sweep", [_VP, _VP, _VP, _I, _I, _I, _VP]),
+    "speckle": ("psm_speckle_sweep", [_VP] * 5 + [_I] * 7 + [_VP]),
+    "segmin": ("psm_segmin_sweep", [_VP] * 3 + [_I] * 7 + [_VP]),
 }
+# kernels whose entry lives in another kernel's source
+_SOURCE = {"segmin": "speckle"}
 NAMES = tuple(_ARGTYPES)
+SOURCES = tuple(dict.fromkeys(_SOURCE.get(n, n) for n in NAMES))
 LAUNCHES = {name: 0 for name in NAMES}
 
 
@@ -88,7 +93,8 @@ def build(names=NAMES) -> float:
     """Compile every library of `names` that is missing, one nvcc process
     per source, all running at once. Returns the wall seconds taken."""
     t0 = time.perf_counter()
-    todo = [n for n in names if not _lib_path(n).exists()]
+    sources = dict.fromkeys(_SOURCE.get(n, n) for n in names)
+    todo = [n for n in sources if not _lib_path(n).exists()]
     if not todo:
         return 0.0
     nvcc = _nvcc()
@@ -149,7 +155,7 @@ def load(name: str):
     if name not in _FNS:
         build((name,))
         fn_name, argtypes = _ARGTYPES[name]
-        fn = getattr(ctypes.CDLL(str(_lib_path(name))), fn_name)
+        fn = getattr(ctypes.CDLL(str(_lib_path(_SOURCE.get(name, name)))), fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _FNS[name] = fn

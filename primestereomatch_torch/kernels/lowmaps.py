@@ -6,9 +6,11 @@ four maps written per value); the kernel keeps the whole box/solve/box
 chain of a 32 x 32 tile in shared memory (csrc/fgf_chain.cuh, shared with
 K4 and K10: one float4 of the four planes per entry, taps at constant
 offsets, the box size a template argument for k = 3, 5, 9, 17 and a
-run-time value otherwise). The TPU layout artefacts (128-lane margins, row
-tiles, the d=0 poison) are gone: the maps come out in the plain
-(B, 4, D, h, w) layout and the WTA kernel simply starts at d=1.
+run-time value otherwise). K1 sums several outputs a thread from taps in
+registers in the horizontal passes too (`block_shape`), which halves the
+chain's shared-memory loads at k = 17. The TPU layout artefacts (128-lane
+margins, row tiles, the d=0 poison) are gone: the maps come out in the
+plain (B, 4, D, h, w) layout and the WTA kernel simply starts at d=1.
 """
 
 from __future__ import annotations
@@ -23,16 +25,36 @@ from primestereomatch_torch.ops.guided_filter import guide_stats, low_maps_from_
 MAX_K = 17  # largest box the kernel's shared-memory tile is sized for
 TILE = 32   # low-res pixels per block edge (csrc/lowmaps.cu, cvc_lowmaps.cu: TH, TW)
 RUN = 4     # outputs a thread sums along the box axis (csrc/fgf_chain.cuh: RV)
+# K1's block by box size as csrc/lowmaps.cu ships it: (threads, outputs a
+# thread in the horizontal passes, blocks an SM the registers are bounded
+# for); k = 17 has its own knobs, 3, 5 and 9 share theirs, and the run-time
+# k takes those threads with one output a thread
+BLOCK_K17 = (256, 4, 2)
+BLOCK_SMALL = (128, 4, 2)
 
 
-def chain_smem_bytes(th: int, tw: int, k: int) -> int:
+def block_shape(k: int) -> tuple[int, int, int]:
+    """(threads, horizontal outputs a thread, blocks an SM) of K1 at box k."""
+    if k == 17:
+        return BLOCK_K17
+    if k in (3, 5, 9):
+        return BLOCK_SMALL
+    return BLOCK_SMALL[0], 1, BLOCK_SMALL[2]
+
+
+def chain_smem_bytes(th: int, tw: int, k: int, rh: int = 1) -> int:
     """Shared memory of the chain for th x tw tiles and k x k boxes
-    (csrc/fgf_chain.cuh::chain_floats): the band, the row sums and the
-    first-level maps with the RUN - 1 rows the last run reads past, one
-    float4 per entry."""
+    (csrc/fgf_chain.cuh::chain_floats), one float4 per entry. rh = 1: the
+    band, the row sums and the first-level maps with the RUN - 1 rows the
+    last run reads past. rh > 1 (outputs a thread in the horizontal
+    passes): the band's region and a second one, the larger of the row
+    sums, the maps and the final sums (odd row pitches where the
+    horizontal passes write), and rh entries a run reads past."""
     m = 2 * (k // 2)
-    return 16 * ((th + 2 * m) * (tw + 2 * m) + (th + m) * (tw + 2 * m)
-                 + (th + m + RUN - 1) * (tw + m))
+    bh, bw, mh, mw = th + 2 * m, tw + 2 * m, th + m, tw + m
+    if rh == 1:
+        return 16 * (bh * bw + mh * bw + (mh + RUN - 1) * mw)
+    return 16 * (bh * bw + max(mh * (bw | 1), (mh + RUN - 1) * mw, th * (tw | 1)) + rh)
 
 
 def low_maps_plain(p_low: torch.Tensor, stats: torch.Tensor, k: int) -> torch.Tensor:

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from primestereomatch_torch.kernels.speckle import segmin_sweep
+from primestereomatch_torch.kernels.speckle import pack_links, speckle_sweep
 
 BIG = 1 << 28       # the JAX package's sentinel; never wins a min
 DISP_SCALE = 16     # OpenCV StereoMatcher::DISP_SCALE fixed-point factor
@@ -279,6 +279,11 @@ def speckle_graph(disp16: torch.Tensor, max_diff: int, invalid_value: int):
     return valid, labels, (conn(0, -1), conn(0, 1), conn(1, -1), conn(1, 1))
 
 
+# convergence checks filter_speckles made (each reads one int: a host sync),
+# for the reports of chip_smoke.py
+SPECKLE_CHECKS = {"count": 0}
+
+
 def filter_speckles(
     disp16: torch.Tensor,          # (H, W) int16 fixed-point disparities
     max_speckle_size: int,
@@ -292,39 +297,29 @@ def filter_speckles(
     `max_speckle_size` pixels become `invalid_value`.
 
     Components by min-label propagation: each sweep is a hook step (the
-    min label over connected neighbours) and then segmented min scans
-    along rows and along columns (K9, kernels/speckle.py), so a label
-    crosses a whole straight run in one sweep. The loop runs until a check
-    finds no label changed; a check (one host sync) follows every
-    `steps_per_check` sweeps (two K9 launches each), and the result is the
-    same for any value.
+    min label over linked neighbours) and then segmented min scans along
+    rows and along columns (K9, kernels/speckle.py::speckle_sweep: two
+    launches, the links packed into one uint8 mask), so a label crosses a
+    whole straight run in one sweep. The loop runs until a check finds no
+    label changed; a check follows every `steps_per_check` sweeps and reads
+    one int that the sweeps stamp where a label changed (one host sync),
+    and the result is the same for any value.
     `max_iters` caps the sweeps (None: run to convergence). Areas by
     scatter_add_."""
     H, W = disp16.shape
     dev = disp16.device
-    big = H * W
-    valid, labels, (conn_up, conn_dn, conn_lf, conn_rt) = speckle_graph(
-        disp16, max_diff, invalid_value)
-    conn_lf_u8 = conn_lf.to(torch.uint8)
-    conn_up_u8 = conn_up.to(torch.uint8)
-
-    def sweep(lbl):
-        m = lbl
-        for c, dim, off in ((conn_up, 0, -1), (conn_dn, 0, 1), (conn_lf, 1, -1),
-                            (conn_rt, 1, 1)):
-            m = torch.minimum(m, torch.where(c, _shifted(lbl, dim, off, big), big))
-        m = segmin_sweep(m, conn_lf_u8, axis=1)
-        return segmin_sweep(m, conn_up_u8, axis=0)
+    valid, labels, conns = speckle_graph(disp16, max_diff, invalid_value)
+    links = pack_links(*conns)
+    changed = torch.zeros(1, dtype=torch.int32, device=dev)
 
     it = 0
     while max_iters is None or it < max_iters:
-        m = labels
+        stamp = it // steps_per_check + 1
         for _ in range(steps_per_check):
-            m = sweep(m)
-        changed = bool((m != labels).any())
-        labels = m
+            labels = speckle_sweep(labels, links, changed, stamp)
         it += steps_per_check
-        if not changed:
+        SPECKLE_CHECKS["count"] += 1
+        if int(changed.item()) != stamp:
             break
 
     areas = torch.zeros(H * W + 1, dtype=torch.int32, device=dev)

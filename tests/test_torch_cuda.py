@@ -437,13 +437,83 @@ def test_select_kernel_degenerate(dev):
         assert torch.equal(K.select_disparity(S, 10, 1), K.select_disparity_plain(S, 10, 1))
 
 
-@pytest.mark.parametrize("H,W", [(24, 40), (17, 150), (130, 33), (1, 70)])
+@pytest.mark.parametrize("H,W", [(24, 40), (17, 150), (130, 33), (1, 70), (1300, 40), (70, 1)])
 def test_segmin_sweep_kernel_matches_plain(dev, H, W):
     rng = np.random.default_rng(H + W)
     m = torch.as_tensor(rng.integers(0, H * W, (H, W), dtype=np.int32), device=dev)
     conn = torch.as_tensor(rng.random((H, W)) < 0.7, device=dev).to(torch.uint8)
     for axis in (0, 1):
         assert torch.equal(K.segmin_sweep(m, conn, axis), K.segmin_sweep_plain(m, conn, axis))
+
+
+def _serpentine(H=32, W=32):
+    d = np.full((H, W), -16, np.int16)
+    d[0::2] = 160
+    for i, y in enumerate(range(1, H - 1, 2)):
+        d[y, W - 1 if i % 2 == 0 else 0] = 160
+    return d
+
+
+def _speckle_case(kind, H, W, seed):
+    """Labels and a packed link mask: random, all links on, all off, or the
+    graph of a serpentine component."""
+    from primestereomatch_torch.ops.sgbm import speckle_graph
+
+    rng = np.random.default_rng(seed)
+    m = torch.as_tensor(rng.integers(0, H * W + 1, (H, W), dtype=np.int32))
+    if kind == "random":
+        return m, torch.as_tensor(rng.integers(0, 16, (H, W), dtype=np.uint8))
+    if kind in ("on", "off"):
+        return m, torch.full((H, W), 15 if kind == "on" else 0, dtype=torch.uint8)
+    _, labels, conns = speckle_graph(torch.as_tensor(_serpentine(H, W)), 32, -16)
+    return labels, K.pack_links(*conns)
+
+
+# a column longer than many segments, one row, one column, one pixel, the
+# shapes of segmin's test, and the SGBM Teddy shape
+SWEEP_SHAPES = [(1300, 40), (1, 70), (70, 1), (1, 1), (24, 40), (17, 150), (375, 450)]
+
+
+@pytest.mark.parametrize("kind", ["random", "on", "off"])
+@pytest.mark.parametrize("H,W", SWEEP_SHAPES)
+def test_speckle_sweep_kernel_matches_plain(dev, kind, H, W):
+    """K9's sweep (hook, rows, columns) is bitwise its plain version, and its
+    flag takes the stamp iff a label changed (out != in anywhere)."""
+    m, links = (t.to(dev) for t in _speckle_case(kind, H, W, H * 7 + W))
+    changed = torch.zeros(1, dtype=torch.int32, device=dev)
+    K.reset_launches()
+    got = K.speckle_sweep(m, links, changed, 3)
+    assert K.LAUNCHES["speckle"] == 2
+    assert torch.equal(got, K.speckle_sweep_plain(m, links))
+    assert (int(changed.item()) == 3) == bool((got != m).any())
+    # a second sweep from the first one's output, with a fresh stamp
+    again = K.speckle_sweep(got, links, changed, 4)
+    assert torch.equal(again, K.speckle_sweep_plain(got, links))
+    assert (int(changed.item()) == 4) == bool((again != got).any())
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (4, 1, 8, 1), (2, 4, 8, 2), (1, 8, 2, 8),
+                                   (8, 2, 16, 1), (1, 16, 1, 16)])
+def test_speckle_sweep_kernel_at_every_block_shape(dev, shape):
+    m, links = (t.to(dev) for t in _speckle_case("serpentine", 64, 48, 0))
+    for _ in range(3):
+        got = K.speckle_sweep(m, links, shape=shape)
+        assert torch.equal(got, K.speckle_sweep_plain(m, links))
+        m = got
+
+
+@pytest.mark.parametrize("cap", [None, 2, 6])
+@pytest.mark.parametrize("spc", [1, 2, 3])
+def test_filter_speckles_on_card_matches_cpu(dev, cap, spc):
+    from primestereomatch_torch.ops.sgbm import filter_speckles
+
+    d = _serpentine(48, 40)
+    rng = np.random.default_rng(spc)
+    d[rng.random(d.shape) < 0.05] = 96
+    want = filter_speckles(torch.as_tensor(d), 400, 32, -16, max_iters=cap, steps_per_check=spc)
+    got = filter_speckles(torch.as_tensor(d, device=dev), 400, 32, -16, max_iters=cap,
+                          steps_per_check=spc)
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("mode", ["hh", "sgbm", "3way"])

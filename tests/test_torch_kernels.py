@@ -196,7 +196,7 @@ def _wrapper_inputs():
 
 @pytest.mark.parametrize("name", ["lowmaps", "wta", "wmf", "bt_cost", "sgbm_scan", "select",
                                   "speckle", "cvc_lowmaps", "cvc_wta", "sgbm_scan_partials",
-                                  "select_partials"])
+                                  "select_partials", "speckle_sweep"])
 def test_wrappers_on_cpu_run_plain_and_count_nothing(name):
     """Given CPU tensors each wrapper returns its plain version's result and
     launches nothing."""
@@ -238,6 +238,10 @@ def test_wrappers_on_cpu_run_plain_and_count_nothing(name):
     elif name == "cvc_wta":
         grd = g[..., 0].contiguous()
         got, want = K.cvc_wta(g, grd, stats, 8, 5), K.cvc_wta_plain(g, grd, stats, 8, 5)
+    elif name == "speckle_sweep":
+        links = torch.as_tensor(rng.integers(0, 16, (12, 40), dtype=np.uint8))
+        got = K.speckle_sweep(S[..., 0], links, torch.zeros(1, dtype=torch.int32))
+        want = K.speckle_sweep_plain(S[..., 0], links)
     else:
         got, want = K.segmin_sweep(S[..., 0], conn, 1), K.segmin_sweep_plain(S[..., 0], conn, 1)
     assert torch.equal(got, want)

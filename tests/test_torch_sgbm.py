@@ -282,6 +282,68 @@ def test_segmin_sweep_plain_matches_pallas(H, W):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _jax_sweep(m, links):
+    """The JAX package's sweep (ops/sgbm.py::filter_speckles' hook, then
+    segmin_sweep_pallas in interpret mode on rows and columns) on numpy
+    labels and a packed link mask."""
+    H, W = m.shape
+    big = H * W
+    lbl = jnp.asarray(m)
+    conn_up, conn_dn, conn_lf, conn_rt = (jnp.asarray((links & b) != 0) for b in (1, 2, 4, 8))
+    col = lbl[:1] * 0 + big
+    row = lbl[:, :1] * 0 + big
+    up = jnp.concatenate([col, lbl[:-1]], axis=0)
+    dn = jnp.concatenate([lbl[1:], col], axis=0)
+    lf = jnp.concatenate([row, lbl[:, :-1]], axis=1)
+    rt = jnp.concatenate([lbl[:, 1:], row], axis=1)
+    h = lbl
+    for c, nb in ((conn_up, up), (conn_dn, dn), (conn_lf, lf), (conn_rt, rt)):
+        h = jnp.minimum(h, jnp.where(c, nb, big))
+    h = segmin_sweep_pallas(h, conn_lf, axis=1, interpret=True)
+    return np.asarray(segmin_sweep_pallas(h, conn_up, axis=0, interpret=True))
+
+
+@pytest.mark.parametrize("H,W", [(24, 40), (17, 150), (130, 33), (1, 70)])
+@pytest.mark.parametrize("kind", ["random", "from_disparities"])
+def test_speckle_sweep_plain_matches_jax(H, W, kind):
+    """One sweep, hook included, exactly the JAX package's; the changed flag
+    takes the stamp iff a label moved."""
+    rng = np.random.default_rng(H * W + len(kind))
+    if kind == "random":
+        m = rng.integers(0, H * W + 1, (H, W)).astype(np.int32)
+        links = rng.integers(0, 16, (H, W)).astype(np.uint8)
+    else:
+        d = (rng.integers(0, 3, (H, W)) * 16).astype(np.int16)
+        d[rng.random((H, W)) < 0.2] = -16
+        _, lab, conns = ops.speckle_graph(_t(d), 16, -16)
+        m, links = lab.numpy(), K.pack_links(*conns).numpy()
+    changed = torch.zeros(1, dtype=torch.int32)
+    got = K.speckle_sweep(_t(m), _t(links), changed, 5).numpy()
+    np.testing.assert_array_equal(got, _jax_sweep(m, links))
+    np.testing.assert_array_equal(K.speckle_sweep_plain(_t(m), _t(links)).numpy(), got)
+    assert (int(changed[0]) == 5) == bool((got != m).any())
+
+
+def test_hook_as_torch_ops_is_the_plain_hook():
+    """chip_smoke.py's timing of the hook as the plain-torch ops it was
+    computes what the sweep's hook computes, on a real link graph."""
+    rng = np.random.default_rng(3)
+    d = (rng.integers(0, 3, (30, 41)) * 16).astype(np.int16)
+    d[rng.random((30, 41)) < 0.2] = -16
+    _, labels, conns = ops.speckle_graph(_t(d), 16, -16)
+    assert torch.equal(chip_smoke.hook_as_torch_ops(labels, conns),
+                       K.speckle.hook_plain(labels, K.pack_links(*conns)))
+
+
+def test_speckle_inputs_on_the_cpu(pair):
+    """chip_smoke.py's speckle start: the filter's labels and links of the
+    pipeline's disparities."""
+    cfg = SGBMConfig(num_disparities=8, speckle_window_size=10)
+    labels, links, conns = chip_smoke.speckle_inputs(cfg, _t(pair[0]), _t(pair[1]))
+    assert labels.shape == pair[0].shape[:2] and links.dtype == torch.uint8
+    assert torch.equal(links, K.pack_links(*conns))
+
+
 def _serpentine(H=32, W=32):
     d = np.full((H, W), -16, np.int16)
     d[0::2] = 160
@@ -315,6 +377,27 @@ def test_filter_speckles_serpentine():
         got = ops.filter_speckles(_t(d), 400, 32, -16, max_iters=cap).numpy()
         want = jops.filter_speckles(jnp.asarray(d), 400, 32, -16, max_iters=cap)
         np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("spc", [1, 2, 3])
+@pytest.mark.parametrize("cap", [None, 2, 6])
+@pytest.mark.parametrize("kind", ["serpentine", "random"])
+def test_filter_speckles_caps_and_checks(spc, cap, kind):
+    """Every steps_per_check and max_iters cap gives the JAX op's output
+    exactly (and, run to convergence, the oracle's)."""
+    if kind == "serpentine":
+        d, size = _serpentine(), 400
+    else:
+        rng = np.random.default_rng(spc)
+        d = (rng.integers(0, 4, (40, 56)) * 40).astype(np.int16)
+        d[rng.random((40, 56)) < 0.25] = -16
+        size = 12
+    got = ops.filter_speckles(_t(d), size, 32, -16, max_iters=cap, steps_per_check=spc).numpy()
+    want = np.asarray(jops.filter_speckles(jnp.asarray(d), size, 32, -16, max_iters=cap,
+                                           steps_per_check=spc))
+    np.testing.assert_array_equal(got, want)
+    if cap is None:
+        np.testing.assert_array_equal(got, oracle.filter_speckles(d, size, 32, -16))
 
 
 @pytest.mark.parametrize("mode", ["hh", "sgbm", "3way"])
@@ -471,3 +554,12 @@ def test_sgbm_wrappers_reject_what_the_kernels_do_not_take():
         K.segmin_sweep(S[..., 0], S[..., 0], 1)
     with pytest.raises(ValueError):
         K.segmin_sweep(S[..., 0], S[..., 0].to(torch.uint8), 2)
+    links = S[..., 0].to(torch.uint8)
+    with pytest.raises(TypeError):
+        K.speckle_sweep(S[..., 0], S[..., 0], None)
+    with pytest.raises(ValueError):
+        K.speckle_sweep(S[..., 0], links[:, :-1])
+    with pytest.raises(ValueError):
+        K.speckle_sweep(S[..., 0], links, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        K.speckle_sweep(S[..., 0], links, torch.zeros(1, dtype=torch.int64))

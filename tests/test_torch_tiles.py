@@ -16,7 +16,8 @@ from primestereomatch_torch.kernels.cvc_wta import TILE_ROWS as K10_TILE_ROWS
 from primestereomatch_torch.kernels.cvc_wta import TILE_X as K10_TILE_X
 from primestereomatch_torch.kernels.cvc_wta import plan_tile as k10_plan_tile
 from primestereomatch_torch.kernels.cvc_wta import smem_bytes as k10_smem_bytes
-from primestereomatch_torch.kernels.lowmaps import MAX_K, TILE, chain_smem_bytes
+from primestereomatch_torch.kernels import speckle as speckle_mod
+from primestereomatch_torch.kernels.lowmaps import MAX_K, TILE, block_shape, chain_smem_bytes
 from primestereomatch_torch.ops.resize import linear_coeffs, low_window
 
 # (maps h, w) -> (image H, W) of the shapes chip_smoke.py drives
@@ -87,6 +88,81 @@ def test_chain_shared_memory_fits_a_block(k):
     assert chain <= cvc_lowmaps.smem_bytes(k) <= _build.MAX_SMEM_BYTES
     assert (cvc_lowmaps.smem_bytes(k) > chain) == (k < 17)
     assert k <= MAX_K
+
+
+@pytest.mark.parametrize("k", [3, 5, 7, 9, 17])
+def test_low_maps_block_fits_its_blocks_an_sm(k):
+    """K1's block: its chain's shared memory lets the blocks an SM its
+    registers are bounded for share one SM; the run-time box keeps one
+    output a thread (the blocked passes need k at compile time)."""
+    threads, rh, blocks = block_shape(k)
+    assert threads % 32 == 0 and rh in (1, 2, 4, 8) and TILE % rh == 0
+    assert rh == 1 or k in (3, 5, 9, 17)
+    assert blocks * (chain_smem_bytes(TILE, TILE, k, rh) + 1024) <= _build.SM_SMEM_BYTES
+
+
+def test_low_maps_block_at_17():
+    """At k = 17 the reused band region holds a 32 x 32 tile in 115,520
+    bytes (153,856 with the unblocked chain), so two blocks share an SM."""
+    assert chain_smem_bytes(TILE, TILE, 17) == 153856
+    assert block_shape(17) == (256, 4, 2) and block_shape(5) == (128, 4, 2)
+    assert chain_smem_bytes(TILE, TILE, 17, 4) == 115520
+    assert 2 * (115520 + 1024) <= _build.SM_SMEM_BYTES
+
+
+@pytest.mark.parametrize("k", [3, 5, 9, 17])
+@pytest.mark.parametrize("rh", [2, 4, 8])
+def test_blocked_chain_holds_every_region(k, rh):
+    """The blocked chain's second region holds the row sums, the maps and
+    the final sums, each at its pitch, and the first-level sums and the
+    sums over mid's rows fit where the band lay."""
+    m = 2 * (k // 2)
+    bh = bw = TILE + 2 * m
+    mh = mw = TILE + m
+    region1 = chain_smem_bytes(TILE, TILE, k, rh) // 16 - bh * bw
+    assert region1 >= max(mh * (bw | 1), (mh + 3) * mw, TILE * (TILE | 1)) + rh
+    assert mh * (mw | 1) <= bh * bw and TILE * (mw | 1) <= bh * bw
+    assert chain_smem_bytes(TILE, TILE, k, rh) < chain_smem_bytes(TILE, TILE, k)
+
+
+@pytest.mark.parametrize("H,W,shape", [(375, 450, (2, 4, 8, 1)), (1242, 2208, (2, 4, 8, 1)),
+                                       (1300, 40, (2, 4, 8, 1)), (1, 1, (2, 4, 8, 1)),
+                                       (40, 40000, (1, 4, 8, 1)), (20000, 40, (2, 4, 2, 1))])
+def test_speckle_launch_shape(H, W, shape):
+    """K9's blocks: the shipped shape, with the lines a block halved until
+    the block fits shared memory; 32 segments a warp at an odd pitch."""
+    assert speckle_mod.launch_shape(H, W) == shape
+    rows, rw, cols, cw = shape
+    assert speckle_mod.row_smem_bytes(W, rows, rw) <= _build.MAX_SMEM_BYTES
+    assert speckle_mod.col_smem_bytes(H, cols, cw) <= _build.MAX_SMEM_BYTES
+    for n, warps in ((W, rw), (H, cw)):
+        seg = -(-n // (32 * warps))
+        assert 32 * warps * seg >= n > 32 * warps * (seg - 1)
+
+
+def test_speckle_launch_shape_at_2k():
+    """At 2K a row block holds 2 rows of 2208 labels, 4 warps (128 segments
+    of 18) a row, in 19 KB; a column block 8 columns of 1242, a warp (32
+    segments of 39) a column, in 40 KB."""
+    assert speckle_mod.row_smem_bytes(2208, 2, 4) == 4 * 2 * (128 * 19 + 16)
+    assert speckle_mod.col_smem_bytes(1242, 8, 1) == 4 * 8 * (32 * 39 + 8 + 4)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 8, 1), (4, 1, 8, 1), (2, 4, 8, 2), (1, 4, 8, 2),
+                                   (2, 2, 8, 1), (2, 4, 4, 4), (2, 4, 16, 1), (8, 2, 8, 2)])
+def test_speckle_shapes_tried_are_launchable(shape):
+    assert speckle_mod.launch_shape(1242, 2208, shape) == shape
+
+
+def test_speckle_launch_shape_refuses_what_no_block_takes():
+    with pytest.raises(ValueError):
+        speckle_mod.launch_shape(10, 60000)       # a row beyond shared memory
+    with pytest.raises(ValueError):
+        speckle_mod.launch_shape(60000, 10)
+    with pytest.raises(ValueError):
+        speckle_mod.launch_shape(10, 10, (2, 4, 6, 2))    # a strip of 6 columns
+    with pytest.raises(ValueError):
+        speckle_mod.launch_shape(10, 10, (2, 4, 8, 4))    # 1024 threads
 
 
 @pytest.mark.parametrize("low,full,k", [(*ZED_VGA, 5), (*TWO_K, 5), ((36, 80), (72, 160), 9),

@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
 """Time the kernels of the STEREO_GIF tails and their variants on one
-NVIDIA card: K2 (csrc/wta.cu), K4 (csrc/cvc_lowmaps.cu), K10
-(csrc/cvc_wta.cu) and, because it runs the same chain header
-(csrc/fgf_chain.cuh), K1.
+NVIDIA card: K1 (csrc/lowmaps.cu), K2 (csrc/wta.cu), K4
+(csrc/cvc_lowmaps.cu) and K10 (csrc/cvc_wta.cu); K1, K4 and K10 run the
+same chain header (csrc/fgf_chain.cuh).
 
     python3 tune_gif_tail.py          # everything, ~1-2 min
     python3 tune_gif_tail.py k10      # K10's variants alone (K4 as shipped beside them)
 
-Builds the four libraries as shipped, and wta.cu / cvc_lowmaps.cu once per
-variant of their -D knobs (K2: tile height, disparities per chunk, pixels
+Builds the four libraries as shipped, and lowmaps.cu / wta.cu /
+cvc_lowmaps.cu once per variant of their -D knobs (K1: threads a block,
+outputs a thread in the chain's horizontal passes, blocks an SM the
+registers are bounded for, disparities a block walks, outputs a thread in
+the vertical passes; K2: tile height, disparities per chunk, pixels
 per thread and the columns they tap, raw windows in flight, blocks an SM
 the registers are bounded for; K4: outputs per thread along the box axis,
-samples staged or gathered per disparity, threads a block) and cvc_wta.cu
+samples staged or gathered per disparity, threads a block, outputs a
+thread in the horizontal passes) and cvc_wta.cu
 once per variant of its (threads a block, output columns a tile, blocks an
 SM the registers are bounded for, the chain's outputs a thread), and times
 K4 at several chunk lengths and K10 at other tile heights and chain counts
 (run-time arguments). Every variant's output must equal the shipped
 kernel's bit for bit, and the shipped kernels their plain versions at the
 small shapes; prints CUDA-event times at chip_smoke.py's shapes (Teddy,
-ZED-VGA, 2K, Teddy at subsample=1). chip_smoke.py calls `wta_variant_ms`,
-`k4_variant_ms` and `k10_variant_ms` for the few variants it reports.
+ZED-VGA, 2K, Teddy at subsample=1). chip_smoke.py calls `k1_variant_ms`,
+`wta_variant_ms`, `k4_variant_ms` and `k10_variant_ms` for the few
+variants it reports.
 Needs one CUDA card and nvcc, like chip_smoke.py; writes nothing.
 """
 
@@ -45,9 +50,17 @@ WTA_VARIANTS = [(16, 8, 1, 2, 1, 3), (16, 8, 1, 2, 2, 3), (16, 8, 1, 2, 1, 4), (
                 (16, 16, 1, 2, 1, 3), (32, 4, 1, 2, 1, 3), (32, 8, 1, 2, 1, 3), (32, 2, 1, 2, 1, 3),
                 (16, 8, 4, 3, 1, 3), (32, 4, 4, 3, 1, 2), (16, 8, 2, 3, 1, 3),
                 (16, 8, 2, 2, 1, 3), (16, 8, 2, 2, 1, 4)]
-# K4: (RV, staged samples, threads a block); the shipped shape first
-K4_VARIANTS = [(4, 1, 512), (4, 0, 512), (1, 1, 512), (2, 1, 512), (8, 1, 512), (4, 1, 256),
-               (4, 1, 384), (4, 1, 1024)]
+# K1: (threads a block, outputs a thread in the horizontal passes, blocks an
+# SM the registers are bounded for, disparities a block walks, outputs a
+# thread in the vertical passes), the same at every box size; the shipped
+# shapes of k = 17 and of the smaller boxes first, then the unblocked chain
+# in 256-thread blocks
+K1_VARIANTS = [(256, 4, 2, 1, 4), (128, 4, 2, 1, 4), (256, 1, 1, 1, 4), (512, 4, 1, 1, 4),
+               (256, 2, 2, 1, 4), (256, 4, 2, 1, 8), (256, 4, 2, 8, 4), (128, 1, 2, 1, 4)]
+# K4: (RV, staged samples, threads a block, outputs a thread in the
+# horizontal passes); the shipped shape first
+K4_VARIANTS = [(4, 1, 512, 1), (4, 0, 512, 1), (1, 1, 512, 1), (2, 1, 512, 1), (8, 1, 512, 1),
+               (4, 1, 256, 1), (4, 1, 384, 1), (4, 1, 1024, 1), (4, 1, 512, 4)]
 K4_CHUNKS = (1, 4, 8, 16, 32)
 # K10: (threads a block, output columns a tile, blocks an SM the registers
 # are bounded for, the chain's outputs a thread along the box axis, output
@@ -89,10 +102,17 @@ def build_wta(variants):
         for v in variants})
 
 
+def build_k1(variants):
+    return _build.build_variants("lowmaps", {v: [
+        f"-DPSM_K1_NT={v[0]}", f"-DPSM_K1_RH={v[1]}", f"-DPSM_K1_MINB={v[2]}",
+        f"-DPSM_K1_NT_S={v[0]}", f"-DPSM_K1_RH_S={v[1]}", f"-DPSM_K1_MINB_S={v[2]}",
+        f"-DPSM_K1_DCH={v[3]}", f"-DPSM_FGF_RV={v[4]}"] for v in variants})
+
+
 def build_k4(variants):
     return _build.build_variants("cvc_lowmaps", {
-        v: [f"-DPSM_FGF_RV={v[0]}", f"-DPSM_K4_STAGE={v[1]}", f"-DPSM_K4_NT={v[2]}"]
-        for v in variants})
+        v: [f"-DPSM_FGF_RV={v[0]}", f"-DPSM_K4_STAGE={v[1]}", f"-DPSM_K4_NT={v[2]}",
+            f"-DPSM_K4_RH={v[3]}"] for v in variants})
 
 
 def build_k10(variants):
@@ -129,6 +149,28 @@ def run_k4(fn, views, grds, stats, D, k, chunk, cost):
         w, k, ctypes.c_float(1.0 / (k * k)), chunk,
         *cost_args(cost["alpha"], cost["border_cost"], cost["tau1"], cost["tau2"]),
         torch.cuda.current_stream().cuda_stream))
+    return out
+
+
+def run_k1(fn, p, stats, k):
+    """K1 through the C entry `fn`."""
+    B, D, h, w = p.shape
+    out = torch.empty((B, 4, D, h, w), dtype=torch.float32, device=p.device)
+    _build.check("lowmaps", fn(p.data_ptr(), stats.data_ptr(), out.data_ptr(), B, D, h, w, k,
+                               ctypes.c_float(1.0 / (k * k)),
+                               torch.cuda.current_stream().cuda_stream))
+    return out
+
+
+def k1_variant_ms(p, stats, k, variants=K1_VARIANTS) -> dict:
+    """{variant: ms} of K1 at box k, each held bitwise against the shipped
+    kernel."""
+    want = K.low_maps(p, stats, k)
+    out = {}
+    for var, fn in build_k1(variants).items():
+        if not torch.equal(run_k1(fn, p, stats, k), want):
+            raise AssertionError(f"K1 variant {var} differs from the shipped kernel")
+        out[var] = cuda_ms(lambda: run_k1(fn, p, stats, k))
     return out
 
 
@@ -201,6 +243,7 @@ def main(argv) -> int:
     names = ("lowmaps", "wta", "cvc_lowmaps", "cvc_wta")
     print(f"build of {names}: {K.build(names):.1f} s", flush=True)
     if not only_k10:            # the variants' libraries and their logs, ahead of the timings
+        build_k1(K1_VARIANTS)
         build_wta(WTA_VARIANTS)
         build_k4(K4_VARIANTS)
     build_k10(K10_VARIANTS)
@@ -237,6 +280,10 @@ def main(argv) -> int:
             raise AssertionError(f"K1 differs from its plain version at {name}")
         print(f"{name}: K1 k={k} {tuple(p.shape)}: "
               f"{cuda_ms(lambda: K.low_maps(p, stats, k)):.4f} ms", flush=True)
+        if name != "2k":
+            for var, ms in k1_variant_ms(p, stats, k).items():
+                print(f"  K1 (threads, RH, blocks, d a block, RV) = {var}: {ms:.4f} ms, "
+                      f"0 values differ", flush=True)
         del p
         if name != "2k" and not torch.equal(K.upsample_wta(views, maps),
                                             K.upsample_wta_plain(views, maps)):
@@ -265,8 +312,8 @@ def main(argv) -> int:
         for (var, ch), ms in k4_variant_ms(views, grds, stats, D, k, cost,
                                            K4_VARIANTS[:1 if only_k10 else None],
                                            () if only_k10 else K4_CHUNKS).items():
-            print(f"  K4 (RV, staged, threads) = {var}, chunk {ch}: {ms:.4f} ms, 0 values differ",
-                  flush=True)
+            print(f"  K4 (RV, staged, threads, RH) = {var}, chunk {ch}: {ms:.4f} ms, 0 values "
+                  f"differ", flush=True)
         two = K.upsample_wta(views, maps)
         del maps
         if not torch.equal(K.cvc_wta(views, grds, stats, D, k, **cost), two):
