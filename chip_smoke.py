@@ -62,7 +62,22 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      host syncs (reads of K9's changed flag) per SGBM frame, and peak device
      memory (one 2K frame on the maps path and on the full path side by
      side);
-  6. one JSON line listing the kernels, then the final status JSON line.
+  6. gif_variants, each path driven as in 4: the uint8 cost
+     (cvc_dtype='u8'), the PP toolchain (pp_toolchain=True) and table-mode
+     JointWMF (feature indexes from utils/features.py, seed 0, clustered
+     in four host processes meanwhile) at Teddy and Cones, %BP(nonocc)
+     within 0.3 of the JAX package's (VARIANT_BP); the uint8 sampled cost
+     of Teddy, whose sha256 must equal the JAX one's (U8_SHA256); uint8 at
+     2K on both tails, which must launch K1, K2 and K3 and neither K4 nor
+     K10 and recover the field; lr_check and fill_invalid on the card
+     bitwise the CPU and the bilateral and table medians within the tie
+     budget (99.9% of pixels), on the card's own Teddy WTA output; DispEst
+     at Teddy against the reference binary's dumps (tests/golden/
+     ref_teddy.npz: gradients 5e-7, CVC 1e-6, CVF 1e-3, WTA mismatch 5e-4)
+     and its dump_cost_volume read back; ms per variant frame, the
+     post-processing stages' device ms, DispEst's ms per stage and peak
+     memory;
+  7. one JSON line listing the kernels, then the final status JSON line.
 
 Needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and the package
 beside this script; it exits non-zero without them. A longer report goes
@@ -71,8 +86,10 @@ to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
+import multiprocessing
 import pathlib
 import subprocess
 import sys
@@ -98,11 +115,19 @@ from primestereomatch_torch.kernels.lowmaps import block_shape as k1_block_shape
 from primestereomatch_torch.kernels.lowmaps import chain_smem_bytes
 from primestereomatch_torch.kernels.speckle import launch_shape as speckle_launch_shape
 from primestereomatch_torch.kernels import wta as wta_mod
-from primestereomatch_torch.models.gif_pipeline import _to_u8, stacked_views
+from primestereomatch_torch.models.gif_pipeline import (
+    _to_u8,
+    sampled_u8_costs,
+    stacked_views,
+    view_gradients,
+)
+from primestereomatch_torch.ops import postproc
 from primestereomatch_torch.ops import sgbm as sgbm_ops
 from primestereomatch_torch.ops.cost_volume import sampled_cost_volumes
 from primestereomatch_torch.ops.guided_filter import guide_stats
+from primestereomatch_torch.ops.jointwmf import joint_wmf
 from primestereomatch_torch.utils import bad_pixel_metrics, load_dataset
+from primestereomatch_torch.utils.png import read_png
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN_NONOCC = {"Teddy": 17.229, "Cones": 9.072}   # reference binary, +-0.3
@@ -112,6 +137,24 @@ SGBM_SHA256 = {
     "Teddy": "a88bc838da2045ca8893b45a05d6466288a2843a974dfa835605055c23dcba16",
     "Cones": "ee9e4a8e15462ebc92336ade40a98bf137333dd5b242df8366adbb5016f78a53",
 }
+# the STEREO_GIF variants of the gif_variants phase and the JAX package's
+# %BP(nonocc) of each (left view, max_dis 64; table mode with the indexes of
+# utils/features.py::feature_index_color, seed 0); the port's must fall
+# within 0.3 (tests/test_torch_variants.py recomputes them from JAX)
+VARIANT_CONFIGS = {
+    "u8": dict(cvc_dtype="u8"),
+    "toolchain": dict(pp_toolchain=True),
+    "table": dict(wmf_mode="table"),
+}
+VARIANT_BP = {
+    "Teddy": {"u8": 16.967703703703705, "toolchain": 11.615407407407407,
+              "table": 17.299555555555557},
+    "Cones": {"u8": 8.973037037037036, "toolchain": 7.351111111111111,
+              "table": 9.049481481481482},
+}
+# sha256 of the JAX package's Teddy uint8 cost volumes nearest-downsampled
+# to the FGF grid (93 x 112, D = 64), left then right
+U8_SHA256 = "1933050fdb707da0e3fa6264331699c07c27c35d8c120c3a40b1f5ae6231a150"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 # H100 SXM int32 ALU peak: 64 INT32 lanes per SM (Hopper white paper) x 132
@@ -132,6 +175,13 @@ TPU_KERNEL = {
     "select": "primestereomatch_tpu/kernels/select_pallas.py:280",
     "speckle": "primestereomatch_tpu/kernels/speckle_pallas.py:51",
 }
+# profiler rows of the GIF kernels; the longer kernel names first:
+# "lowmaps_kernel" is part of "cvc_lowmaps_kernel"
+GIF_TAGS = {"cvc_lowmaps_kernel": "cvc_lowmaps", "cvc_wta_kernel": "cvc_wta",
+            "lowmaps_kernel": "lowmaps", "upsample_wta_kernel": "wta",
+            "upsample_wta_staged_kernel": "wta",
+            "joint_wmf_kernel": "wmf", "wmf_weights_kernel": "wmf"}
+PROBE_D = (1, 8, 32, 63)   # the disparities of the reference's stage dumps
 GIF_KERNELS = ("lowmaps", "wta", "wmf", "cvc_lowmaps", "cvc_wta")
 SGBM_KERNELS = ("bt_cost", "sgbm_scan", "select", "speckle")
 # cv2-golden bounds (tests/test_sgbm_cv2_golden.py:58-104): within-1d on
@@ -817,11 +867,237 @@ def check_medians_2k(ld: np.ndarray, rd: np.ndarray | None, rect) -> dict:
     return med
 
 
+def peak_gib(run) -> float:
+    """Peak device memory (GiB) of one `run()`, the resident tensors
+    included."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def feature_tables(pool) -> dict:
+    """Table mode's feature indexes (seed 0) of Teddy's and Cones' views,
+    computed in `pool`'s processes while the card works (k-means on the
+    host takes seconds a view). Returns futures of (findex, wmap) keyed
+    (name, view)."""
+    return {(n, v): pool.submit(_feature_index, n, v) for n in GOLDEN_NONOCC for v in (0, 1)}
+
+
+def _feature_index(name: str, view: int):
+    from primestereomatch_torch.utils import feature_index_color
+
+    s = load_dataset(name)
+    return feature_index_color(s.right_bgr if view else s.left_bgr, seed=0)
+
+
+def gif_variants(dev, smi, drive, samples, frames, tables, left2k, right2k, rect) -> dict:
+    """The gif_variants phase: the uint8 cost, the PP toolchain and table
+    mode at Teddy and Cones (%BP(nonocc) within 0.3 of the JAX package's,
+    each path's kernels asserted), the uint8 sampled cost's sha256 at
+    Teddy, uint8 at 2K (K1 -> K2 -> K3 on both tails, no K4 or K10), the
+    post-processing ops on the card against the CPU on the card's own WTA
+    output, and DispEst at Teddy against the reference binary's stage dumps
+    (tests/golden/ref_teddy.npz, the JAX package's bounds); times of each
+    and peak memory."""
+    out: dict = {"bp_nonocc": {}, "ms_per_frame": {}}
+    views = torch.stack(frames["Teddy"])
+    digest = hashlib.sha256(sampled_u8_costs(views, psm.GIFConfig()).cpu().numpy()
+                            .tobytes()).hexdigest()
+    log(f"variants: Teddy uint8 sampled cost sha256 {digest[:16]}... "
+        f"{'equals' if digest == U8_SHA256 else 'DIFFERS FROM'} the JAX package's")
+    if digest != U8_SHA256:
+        raise AssertionError(f"u8 sampled cost sha256 {digest} != {U8_SHA256}")
+    out["u8_sha256"] = digest
+
+    t0 = time.perf_counter()
+    tab = {key: f.result() for key, f in tables.items()}
+    out["feature_wait_s"] = time.perf_counter() - t0     # the host clustering, not yet done
+    k12 = ("lowmaps", "wta")
+    expect = {"u8": k12 + ("wmf",), "toolchain": k12 + ("wmf",), "table": k12}
+    notes = {"u8": "uint8 cost -> K1 -> K2 -> K3",
+             "toolchain": "K1 -> K2 -> LR check, fill, bilateral median (plain torch) -> K3",
+             "table": "K1 -> K2 -> table-mode JointWMF (plain torch)"}
+    runs = {}
+    for n, s in samples.items():
+        for variant, kw in VARIANT_CONFIGS.items():
+            cfg = psm.GIFConfig(**kw)
+            extra = ()
+            if variant == "table":
+                (lf, wm), (rf, _) = tab[(n, 0)], tab[(n, 1)]
+                extra = (torch.as_tensor(lf, device=dev), torch.as_tensor(rf, device=dev),
+                         torch.as_tensor(wm, device=dev))
+            run = (lambda n=n, cfg=cfg, extra=extra:
+                   psm.stereo_gif_forward(*frames[n], cfg, True, *extra, device=dev))
+            ld, rd = (t.cpu().numpy() for t in drive(f"{n}_{variant}", expect[variant], run))
+            if ld.shape != s.gt.shape or min(ld.min(), rd.min()) < 1 or max(ld.max(),
+                                                                           rd.max()) >= 64:
+                raise AssertionError(f"{n} {variant}: disparities out of shape or range")
+            bp = bad_pixel_metrics(ld, s.gt, s.scale_factor, 64,
+                                   mask=s.mask_nonocc).percent_bad_pixels
+            want = VARIANT_BP[n][variant]
+            out["bp_nonocc"][f"{n}_{variant}"] = bp
+            log(f"variants: {n} {variant} %BP(nonocc) {bp:.3f} (JAX package {want:.3f}, +-0.3)")
+            if abs(bp - want) > 0.3:
+                raise AssertionError(f"{n} {variant} %BP {bp} is not within 0.3 of {want}")
+            runs[f"{n}_{variant}"] = run, notes[variant]
+
+    # uint8 at 2K: the fused tails build the float cost, so K1 runs on both
+    pair2k = (torch.as_tensor(left2k, device=dev), torch.as_tensor(right2k, device=dev))
+    for fusion in ("maps", "full"):
+        cfg = psm.GIFConfig(max_dis=256, cvc_dtype="u8", tail_fusion=fusion)
+        run = lambda cfg=cfg: psm.stereo_gif_forward(*pair2k, cfg, device=dev)  # noqa: E731
+        ld, rd = (t.cpu().numpy().astype(np.float64)
+                  for t in drive(f"2k_u8_{fusion}", k12 + ("wmf",), run))
+        med = check_medians_2k(ld, rd, rect)
+        out[f"medians_2k_u8_{fusion}"] = med
+        log(f"variants: 2k u8 ({fusion}) interior medians {med} match the field")
+        runs[f"2k_u8_{fusion}"] = run, notes["u8"]
+
+    # the post-processing ops on the card's own Teddy WTA output
+    l_img, r_img = frames["Teddy"]
+    ld, rd = psm.stereo_gif_forward(l_img, r_img, psm.GIFConfig(), False, device=dev)
+    lv, rv = postproc.lr_check(ld, rd)
+    lf = postproc.fill_invalid(ld, lv)
+    rf = postproc.fill_invalid(rd, rv)
+    cpu = [t.cpu() for t in (ld, rd, l_img, r_img)]
+    lv_c, rv_c = postproc.lr_check(cpu[0], cpu[1])
+    bitwise = {"lr_check": torch.equal(lv.cpu(), lv_c) and torch.equal(rv.cpu(), rv_c),
+               "fill_invalid": torch.equal(lf.cpu(), postproc.fill_invalid(cpu[0], lv_c))
+               and torch.equal(rf.cpu(), postproc.fill_invalid(cpu[1], rv_c))}
+    pp = {"valid_share": float(lv.float().mean())}
+    for key, ok in bitwise.items():
+        log(f"variants: {key} on the card {'equals' if ok else 'DIFFERS FROM'} the CPU "
+            f"(bitwise required)")
+        if not ok:
+            raise AssertionError(f"{key} on the card differs from the CPU")
+    g_u8 = _to_u8(l_img)
+    (l_fi, l_wm) = tab[("Teddy", 0)]
+    fi_t, wm_t = torch.as_tensor(l_fi, device=dev), torch.as_tensor(l_wm, device=dev)
+    stages = {
+        "lr_check": lambda: postproc.lr_check(ld, rd),
+        "fill_invalid": lambda: (postproc.fill_invalid(ld, lv), postproc.fill_invalid(rd, rv)),
+        "weighted_median_left": lambda: postproc.weighted_median(l_img, lf, lv, 64),
+        "weighted_median_right": lambda: postproc.weighted_median(r_img, rf, rv, 64,
+                                                                  use_sqrt=True),
+        "table_median_left": lambda: joint_wmf(ld, radius=9, n_bins=64, findex=fi_t,
+                                               wmap=wm_t),
+        "exact_median_both (K3)": lambda: K.weighted_median(
+            torch.stack([ld, rd]), torch.stack([g_u8, _to_u8(r_img)]),
+            9, 64, 25.5),
+    }
+    cpu_ref = {
+        "weighted_median_left": lambda: postproc.weighted_median(
+            cpu[2], lf.cpu(), lv_c, 64),
+        "weighted_median_right": lambda: postproc.weighted_median(
+            cpu[3], rf.cpu(), rv_c, 64, use_sqrt=True),
+        "table_median_left": lambda: joint_wmf(cpu[0], radius=9, n_bins=64,
+                                               findex=torch.as_tensor(l_fi),
+                                               wmap=torch.as_tensor(l_wm)),
+    }
+    for key, fn in cpu_ref.items():
+        got = stages[key]().cpu()
+        want = fn()
+        agree = float((got == want).float().mean())
+        pp[f"{key}_agree"] = agree
+        log(f"variants: {key} on the card agrees with the CPU at {agree:.6f} of the pixels "
+            f"({int((got != want).sum())} differ; tie budget >= 0.999)")
+        if agree < 0.999:
+            raise AssertionError(f"{key} on the card is outside the tie budget: {agree}")
+    # the corners: does the card keep a subnormal through scatter_add_ (a
+    # float atomic add) and through expf, as the CPU does?
+    tiny = torch.tensor([1e-40, -90.0])
+    xs = torch.linspace(-104, 0, 2**20)             # made on the host, copied
+    probe = {"scatter_add_1e-40": float(torch.zeros(1, device=dev).scatter_add_(
+                 0, torch.zeros(1, dtype=torch.int64, device=dev), tiny[:1].to(dev))),
+             "add_1e-40": float(torch.zeros(1, device=dev) + tiny[:1].to(dev)),
+             "exp_-90": float(torch.exp(tiny[1:].to(dev))),
+             "exp_-90_cpu": float(torch.exp(tiny[1:])),
+             "exp_ulps_apart_on_[-104,0]": int((
+                 torch.exp(xs.to(dev)).cpu().view(torch.int32)
+                 - torch.exp(xs).view(torch.int32)).abs().max())}
+    pp["subnormal_probe"] = probe
+    log(f"variants: the card on subnormals and exp: {probe}")
+    pp["device_ms"] = {key: profiled_ms(fn, iters=3) for key, fn in stages.items()}
+    log(f"variants: post-processing device ms (profiler, Teddy 375x450, 64 bins): "
+        f"{ {k: round(v, 4) for k, v in pp['device_ms'].items()} } ({smi})")
+    out["postproc"] = pp
+
+    # DispEst at Teddy against the reference binary's stage dumps
+    ref = np.load(ROOT / "tests" / "golden" / "ref_teddy.npz")
+    eng = psm.DispEst(psm.GIFConfig(), device=dev)
+    grd = view_gradients(views, psm.GIFConfig()).cpu().numpy()
+    lcv, rcv = eng.cost_const(l_img, r_img)
+    lcvf = eng.cost_filter(l_img, lcv)
+    rcvf = eng.cost_filter(r_img, rcv)
+    err = {"grad": max(float(np.abs(grd[v] - ref[k]).max()) for v, k in ((0, "lgrdx"),
+                                                                       (1, "rgrdx"))),
+           "cvc": max(float(np.abs(cv[d].cpu().numpy() - ref[f"cvc_{sd}_d{d}"]).max())
+                      for sd, cv in (("l", lcv), ("r", rcv)) for d in PROBE_D),
+           "cvf": max(float(np.abs(cv[d].cpu().numpy() - ref[f"cvf_{sd}_d{d}"]).max())
+                      for sd, cv in (("l", lcvf), ("r", rcvf)) for d in PROBE_D),
+           "wta_mismatch": max(float((eng.disp_select(cv).cpu().numpy() != ref[f"{sd}disp_wta"])
+                                     .mean()) for sd, cv in (("l", lcvf), ("r", rcvf)))}
+    log(f"variants: DispEst at Teddy vs the reference dumps: {err} (bounds: gradients 5e-7, "
+        f"CVC 1e-6, CVF 1e-3 at d in {PROBE_D}, WTA mismatch 5e-4)")
+    for key, lim in (("grad", 5e-7), ("cvc", 1e-6), ("cvf", 1e-3), ("wta_mismatch", 5e-4)):
+        if not err[key] <= lim:
+            raise AssertionError(f"DispEst {key} {err[key]} beyond {lim}")
+    dump = ROOT / "build" / "dispest_dump"
+    dump.mkdir(parents=True, exist_ok=True)
+    paths = eng.dump_cost_volume(lcv, str(dump / "l_"))
+    want = np.clip(np.rint(lcv.cpu().numpy() * 255.0), 0, 255).astype(np.uint8)
+    same = all(np.array_equal(read_png(p, 1), w) for p, w in zip(paths, want))
+    for p in paths:
+        pathlib.Path(p).unlink()
+    dump.rmdir()
+    log(f"variants: DispEst.dump_cost_volume wrote {len(paths)} slices; read back "
+        f"{'unchanged' if same else 'CHANGED'}")
+    if not same or len(paths) != lcv.shape[0]:
+        raise AssertionError("dump_cost_volume does not round-trip through read_png")
+    wta = eng.disp_select(lcvf)
+    out["dispest"] = {"errors": err, "ms": {
+        "cost_const": cuda_ms(lambda: eng.cost_const(l_img, r_img), 5, 1),
+        "cost_filter": cuda_ms(lambda: eng.cost_filter(l_img, lcv), 5, 1),
+        "disp_select": cuda_ms(lambda: eng.disp_select(lcvf), 5, 1),
+        "post_process": cuda_ms(lambda: eng.post_process(wta, l_img), 5, 1),
+        "compute": cuda_ms(lambda: eng.compute(l_img, r_img), 3, 1)}}
+    del lcv, rcv, lcvf, rcvf
+    log(f"variants: DispEst ms per stage at Teddy (one view; compute: both views, every "
+        f"stage): { {k: round(v, 4) for k, v in out['dispest']['ms'].items()} } ({smi})")
+
+    out["e2e"] = {}
+    for key, (run, note) in runs.items():
+        if key.startswith("Cones"):
+            continue
+        out["e2e"][key] = end_to_end(key, run, GIF_TAGS, note, 10 if key.startswith("2k") else 5)
+        out["ms_per_frame"][key] = out["e2e"][key]["ms_per_frame"]
+    out["peak_gib"] = {key: peak_gib(run) for key, (run, _) in runs.items()
+                       if not key.startswith("Cones")}
+    out["peak_gib"]["dispest_teddy"] = peak_gib(lambda: eng.compute(l_img, r_img))
+    log(f"variants: ms per frame (host clock, synchronised) "
+        f"{ {k: round(v, 3) for k, v in out['ms_per_frame'].items()} }; peak GiB "
+        f"{ {k: round(v, 3) for k, v in out['peak_gib'].items()} } ({smi})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card",
               file=sys.stderr)
         return 1
+    # table mode's k-means runs on the host in these processes meanwhile
+    pool = concurrent.futures.ProcessPoolExecutor(
+        4, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return run(feature_tables(pool))
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def run(tables: dict) -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -896,6 +1172,8 @@ def main() -> int:
                              lambda: psm.stereo_gif_forward(*frames["Teddy"], cfg_s1, device=dev))
     outs["batch4"] = drive("batch4", k123,
                            lambda: psm.stereo_gif_forward_batch(*batch4, cfg, device=dev))
+    variants = gif_variants(dev, smi, drive, samples, frames, tables, left2k, right2k, rect)
+    torch.cuda.empty_cache()
     launches = {k: sum(c.get(k, 0) for c in path_launches.values()) for k in GIF_KERNELS}
     log(f"GIF main paths, launches summed: {launches}")
     if min(launches.values()) < 1:
@@ -1017,11 +1295,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     e2e = {}
-    # the longer kernel names first: "lowmaps_kernel" is part of "cvc_lowmaps_kernel"
-    gif_tags = {"cvc_lowmaps_kernel": "cvc_lowmaps", "cvc_wta_kernel": "cvc_wta",
-                "lowmaps_kernel": "lowmaps", "upsample_wta_kernel": "wta",
-                "upsample_wta_staged_kernel": "wta",
-                "joint_wmf_kernel": "wmf", "wmf_weights_kernel": "wmf"}
     sgbm_tags = {"bt_cost_kernel": "bt_cost",
                  "sgm_scan_kernel": "sgbm_scan", "select_kernel": "select",
                  "speckle_rows_kernel": "speckle", "speckle_cols_kernel": "speckle"}
@@ -1033,9 +1306,9 @@ def main() -> int:
     }
     for n, (pair, c, iters, note) in gif_runs.items():
         e2e[n] = end_to_end(n, lambda: psm.stereo_gif_forward(*pair, c, device=dev),
-                            gif_tags, note, iters)
+                            GIF_TAGS, note, iters)
     e2e["batch4"] = end_to_end(
-        "batch4", lambda: psm.stereo_gif_forward_batch(*batch4, cfg, device=dev), gif_tags,
+        "batch4", lambda: psm.stereo_gif_forward_batch(*batch4, cfg, device=dev), GIF_TAGS,
         "one call for 4 Teddy-size frames: divide by 4 for a frame", ITERS)
     for n, sc in (("teddy", scfg), ("2k", scfg2k)):
         l_u, r_u = sframes["Teddy" if n == "teddy" else "2k"]
@@ -1044,14 +1317,6 @@ def main() -> int:
             sgbm_tags, f"{sc.mode}, D={sc.num_disparities}, speckle filter", ITERS)
     torch.cuda.synchronize()
     peak = {"run": torch.cuda.max_memory_allocated() / 2**30}
-
-    def peak_gib(run) -> float:
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        run()
-        torch.cuda.synchronize()
-        return torch.cuda.max_memory_allocated() / 2**30
 
     peak["gif_2k_maps"] = peak_gib(lambda: psm.stereo_gif_forward(*frames["2k"], cfg2k,
                                                                   device=dev))
@@ -1118,7 +1383,7 @@ def main() -> int:
         "fused_parity": fused_report, "bp_nonocc": bp, "path_launches": path_launches,
         "e2e": e2e, "medians_2k": med2k, "full_vs_maps_2k": full_vs_maps,
         "sgbm_quality": sgbm_q, "sgbm_per_frame": sper_frame, "sgbm_medians_2k": smed2k,
-        "peak_gib": peak,
+        "peak_gib": peak, "variants": variants,
         "build_logs": _build.BUILD_LOGS, "build_seconds": build_secs,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))

@@ -16,6 +16,7 @@ from primestereomatch_torch.config import (  # noqa: F401
     from_jax_sgbm_config,
 )
 from primestereomatch_torch.models import (  # noqa: F401
+    DispEst,
     StereoGIF,
     StereoSGBM,
     sgbm_display_u8,

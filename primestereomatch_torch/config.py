@@ -24,13 +24,6 @@ _CHOICES = {
     "wmf_mode": ("exact", "table"),
 }
 
-# valid values this package does not run yet (see ROADMAP.md)
-_NOT_PORTED = {
-    "cvc_dtype": "u8",
-    "wmf_mode": "table",
-    "pp_toolchain": True,
-}
-
 # the JAX configs' TPU implementation selectors and their allowed values;
 # `from_jax_*` validate and drop them
 _JAX_GIF_SELECTORS = {
@@ -65,8 +58,13 @@ class GIFConfig:
     subsample: int = 4
     med_sz: int = 19             # JointWMF radius = med_sz // 2
     wmf_sigma: float = 25.5
-    wmf_n_feat: int = 256
+    wmf_n_feat: int = 256        # feature clusters of 'table' mode (utils/features.py)
+    # JointWMF weights: 'exact' from the 6-bit colours (K3); 'table' from a
+    # per-pixel feature index and an (nF, nF) table, when the caller passes
+    # them (stereo_gif_forward's l_findex, r_findex, wmap)
     wmf_mode: str = "exact"
+    # 'u8': the reference's uchar OpenCL cost (integer /3, uint8 cost),
+    # fed to the FGF at /255 scale; it always takes K1 -> K2
     cvc_dtype: str = "f32"
     # 'maps': the coefficient maps (4, D, h, w) per view go through device
     # memory between the low-maps and the WTA kernel. 'full': at
@@ -74,8 +72,10 @@ class GIFConfig:
     # and WTA run in one kernel and neither the cost volume nor the maps
     # exist in device memory; other geometries take the maps path.
     tail_fusion: str = "maps"    # maps | full
-    sig_clr: float = 0.1
-    sig_dis: float = 9.0
+    sig_clr: float = 0.1         # wgtMedian colour sigma (ops/postproc.py)
+    sig_dis: float = 9.0         # wgtMedian distance sigma
+    # lrCheck -> fillInv -> wgtMedian ahead of JointWMF (the reference
+    # ships it commented out, src/PP.cpp:405-413)
     pp_toolchain: bool = False
 
     def __post_init__(self):
@@ -84,12 +84,6 @@ class GIFConfig:
             if value not in allowed:
                 raise ValueError(
                     f"GIFConfig.{field}={value!r} is not one of {allowed}"
-                )
-        for field, value in _NOT_PORTED.items():
-            if getattr(self, field) == value:
-                raise NotImplementedError(
-                    f"GIFConfig.{field}={value!r} is not ported to "
-                    "primestereomatch_torch yet"
                 )
         # disparities are stored as uint8 and d=0 is never selected
         if not 2 <= self.max_dis <= 256:
@@ -176,7 +170,9 @@ def _from_jax(cls, fields: dict, selectors: dict):
 
 def from_jax_config(fields: dict) -> GIFConfig:
     """Build the port's GIFConfig from `dataclasses.asdict()` of the JAX
-    package's GIFConfig. `tail_fusion` comes across; the TPU selectors and
+    package's GIFConfig. Every field the port reads comes across
+    (`tail_fusion`, `cvc_dtype`, `wmf_mode`, `pp_toolchain`, `wmf_n_feat`,
+    `sig_clr` and `sig_dis` among them); the TPU selectors and
     `wta_d_chunk` are checked and dropped; other keys this config does not
     know raise."""
     return _from_jax(GIFConfig, fields, _JAX_GIF_SELECTORS)

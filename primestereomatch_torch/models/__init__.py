@@ -1,6 +1,8 @@
-"""Entry points: STEREO_GIF (single frame, batch, module) and STEREO_SGBM."""
+"""Entry points: STEREO_GIF (single frame, batch, module, the staged
+DispEst) and STEREO_SGBM."""
 
 from primestereomatch_torch.models.gif_pipeline import (  # noqa: F401
+    DispEst,
     StereoGIF,
     stereo_gif_forward,
     stereo_gif_forward_batch,

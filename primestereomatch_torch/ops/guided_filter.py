@@ -5,8 +5,11 @@ The FastGuidedFilter (src/fastguidedfilter.cpp, arXiv 1505.00996) works at
 the nearest-downsampled grid: guide statistics and the inverse colour
 covariance, a per-slice (a, b) solve, a box average of each map; then the
 maps are bilinearly upsampled and applied to the full-resolution guide.
-Here that last step is fused with the winner-takes-all argmin, so the
-filtered full-resolution volume never exists.
+On the pipeline's path that last step is fused with the winner-takes-all
+argmin, so the filtered full-resolution volume never exists; the staged
+engine (models/gif_pipeline.py::DispEst) builds it
+(`fast_guided_filter_color`), and `guided_filter_color` is the
+reference's full-resolution CVF.
 
 Every expression keeps the JAX package's term order (ops/guided_filter.py
 there), which the CUDA kernels follow in turn.
@@ -18,6 +21,8 @@ import torch
 
 from primestereomatch_torch.ops.boxfilter import box_mean
 from primestereomatch_torch.ops.resize import resize_bilinear, resize_nearest
+
+_FILTER_D_CHUNK = 16  # slices a full-resolution filter upsamples at once
 
 
 def _color_inverse_cov(ch, k: int, eps: float):
@@ -121,3 +126,58 @@ def fgf_wta_low_maps(
             best = torch.where(take, c_min, best)
             arg = torch.where(take, c_arg, arg)
     return arg.to(torch.uint8)
+
+
+def fast_guided_filter_color_low(
+    guide: torch.Tensor,       # (H, W, 3) float32 full-res guide
+    p_low: torch.Tensor,       # (D, H//s, W//s) nearest-downsampled volume
+    radius: int = 8,
+    eps: float = 1e-4,
+    subsample: int = 4,
+) -> torch.Tensor:
+    """The FastGuidedFilter's output on every slice, d = 0 included: the
+    low-resolution chain, each map bilinearly upsampled, then
+    up(a_r)*I0 + up(a_g)*I1 + up(a_b)*I2 + up(b). Returns (D, H, W).
+    Plain torch, as the JAX package computes it (the low-maps kernel
+    leaves d = 0 out); _FILTER_D_CHUNK slices at a time bound the upsampled
+    temporaries."""
+    H, W, _ = guide.shape
+    mean_a, mean_b = fgf_low_maps(guide, p_low, radius, eps, subsample)
+    ch = [guide[..., c] for c in range(3)]
+    out = []
+    for d0 in range(0, p_low.shape[0], _FILTER_D_CHUNK):
+        up = [resize_bilinear(t[d0:d0 + _FILTER_D_CHUNK], (H, W)) for t in (*mean_a, mean_b)]
+        out.append(up[0] * ch[0] + up[1] * ch[1] + up[2] * ch[2] + up[3])
+    return torch.cat(out)
+
+
+def fast_guided_filter_color(
+    guide: torch.Tensor,       # (H, W, 3) float32 full-res guide
+    p: torch.Tensor,           # (D, H, W) float32 cost volume
+    radius: int = 8,
+    eps: float = 1e-4,
+    subsample: int = 4,
+) -> torch.Tensor:
+    """FastGuidedFilter(I, r, eps, s).filter(p) for every slice of p
+    (src/fastguidedfilter.cpp:121-198; the reference calls it with r = 8,
+    eps = 1e-4, src/DispEst.cpp:281-295): each slice nearest-downsampled by
+    s, then `fast_guided_filter_color_low`. Returns (D, H, W)."""
+    H, W, _ = guide.shape
+    p_low = resize_nearest(p, (H // subsample, W // subsample))
+    return fast_guided_filter_color_low(guide, p_low, radius, eps, subsample)
+
+
+def guided_filter_color(
+    guide: torch.Tensor,       # (H, W, 3)
+    p: torch.Tensor,           # (D, H, W)
+    ksize: int = 8,
+    eps: float = 1e-4,
+) -> torch.Tensor:
+    """Full-resolution colour guided filter (the reference's CVF stage,
+    src/CVF.cpp:72-165): a ksize x ksize box (GIF_R_WIN used as the box
+    size; an even size spans [i - k/2, i + k/2 - 1], OpenCV's anchor)."""
+    ch = tuple(guide[..., c] for c in range(3))
+    means, inv = _color_inverse_cov(ch, ksize, eps)
+    (a_r, a_g, a_b), b = _solve_ab(p, ch, means, inv, ksize)
+    return (box_mean(a_r, ksize) * ch[0] + box_mean(a_g, ksize) * ch[1]
+            + box_mean(a_b, ksize) * ch[2] + box_mean(b, ksize))

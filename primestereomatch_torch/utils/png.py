@@ -1,4 +1,4 @@
-"""A small PNG decoder built on zlib and numpy only.
+"""A small PNG decoder and encoder built on zlib and numpy only.
 
 It reads what the bundled Middlebury sets hold: 8-bit RGB (colour type 2),
 8-bit or packed grey (type 0) and packed palette images (type 3), none of
@@ -6,6 +6,8 @@ them interlaced. The results match libpng's, as the JAX package's loader
 uses it (native/psm_runtime.cpp): colour reads come back in BGR order, and
 grey reads of a palette image take the palette entry, which must be grey
 (R = G = B) so that libpng's rgb-to-grey conversion leaves it unchanged.
+`write_png` writes 8-bit grey or BGR images (colour types 0 and 2, no
+filter), which `read_png` reads back unchanged.
 """
 
 from __future__ import annotations
@@ -113,3 +115,25 @@ def read_png(path: str, channels: int) -> np.ndarray:
             and np.array_equal(palette[:, 0], palette[:, 2])):
         raise ValueError(f"{path}: grey read of a non-grey palette unsupported")
     return np.ascontiguousarray(rgb[..., 0])
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Encode (H, W) grey or (H, W, 3) BGR uint8 `img` to `path`."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"expected (H, W) or (H, W, 3) uint8, got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    ctype = 0 if img.ndim == 2 else 2
+    rows = img if ctype == 0 else img[..., ::-1]      # BGR -> RGB
+    raw = np.zeros((h, 1 + w * (1 if ctype == 0 else 3)), np.uint8)  # filter 0 per row
+    raw[:, 1:] = rows.reshape(h, -1)
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE)
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)))
+        f.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+        f.write(_chunk(b"IEND", b""))

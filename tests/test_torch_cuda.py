@@ -532,3 +532,144 @@ def test_sgbm_forward_on_card_matches_cpu(dev, mode):
     # the partials route: a path family of each group per launch
     assert K.LAUNCHES["sgbm_scan"] == {"hh": 2, "sgbm": 2, "3way": 1}[mode]
     assert torch.equal(got.cpu(), stereo_sgbm_forward(left, right, cfg, device="cpu"))
+
+
+# ---- the STEREO_GIF variants: u8 cost, the PP toolchain, table mode, ------
+# ---- the float JointWMF and the staged engine -----------------------------
+
+def _agree(a, b, share=0.999):
+    """The JointWMF tie budget: at least 99.9% of the medians agree (CUDA
+    expf may differ from the CPU's by an ulp on a cumulative tie)."""
+    assert a.shape == b.shape and a.dtype == b.dtype
+    assert (a.cpu() == b.cpu()).float().mean() >= share
+
+
+def _pair(H, W, shift, seed):
+    rng = np.random.default_rng(seed)
+    left = rng.random((H, W, 3)).astype(np.float32)
+    return left, np.ascontiguousarray(np.roll(left, -shift, axis=1))
+
+
+def test_postproc_ops_on_card_match_cpu(dev):
+    """lr_check and fill_invalid bitwise, weighted_median (both exponent
+    forms) within the tie budget, on the card's own WTA output."""
+    from primestereomatch_torch.ops import postproc
+
+    left, right = _pair(64, 154, 5, 1)
+    cfg = GIFConfig(max_dis=16)
+    ld, rd = stereo_gif_forward(left, right, cfg, run_postprocess=False)
+    lv, rv = postproc.lr_check(ld, rd)
+    lv_c, rv_c = postproc.lr_check(ld.cpu(), rd.cpu())
+    assert torch.equal(lv.cpu(), lv_c) and torch.equal(rv.cpu(), rv_c)
+    for d, v, img, use_sqrt in ((ld, lv, left, False), (rd, rv, right, True)):
+        filled = postproc.fill_invalid(d, v)
+        assert torch.equal(filled.cpu(), postproc.fill_invalid(d.cpu(), v.cpu()))
+        img_t = torch.as_tensor(img)
+        got = postproc.weighted_median(img_t.to(dev), filled, v, 16, 19, use_sqrt=use_sqrt)
+        _agree(got, postproc.weighted_median(img_t, filled.cpu(), v.cpu(), 16, 19,
+                                             use_sqrt=use_sqrt))
+
+
+def test_table_median_on_card_matches_cpu(dev):
+    from primestereomatch_torch.ops.jointwmf import joint_wmf
+    from primestereomatch_torch.utils import feature_index_color
+
+    rng = np.random.default_rng(8)
+    guide = rng.integers(0, 256, (48, 70, 3), dtype=np.uint8)
+    fi, wm = feature_index_color(guide, n_feat=64, seed=0)
+    disp = torch.as_tensor(rng.integers(0, 32, (48, 70), dtype=np.uint8))
+    fi_t, wm_t = torch.as_tensor(fi), torch.as_tensor(wm)
+    got = joint_wmf(disp.to(dev), radius=9, n_bins=32, findex=fi_t.to(dev), wmap=wm_t.to(dev))
+    _agree(got, joint_wmf(disp, radius=9, n_bins=32, findex=fi_t, wmap=wm_t))
+
+
+@pytest.mark.parametrize("fusion", ["maps", "full"])
+def test_u8_forward_launches_k1_at_exact_stride(dev, fusion):
+    """At 160 = 4 * 40 the float cost takes K4 (or K10), the uint8 cost K1
+    -> K2 -> K3; the card agrees with the CPU within the tie class."""
+    left, right = _pair(64, 160, 6, 2)
+    cfg = GIFConfig(max_dis=16, med_sz=7, cvc_dtype="u8", tail_fusion=fusion)
+    K.reset_launches()
+    got = stereo_gif_forward(left, right, cfg)
+    assert {n for n, c in K.LAUNCHES.items() if c} == {"lowmaps", "wta", "wmf"}
+    want = stereo_gif_forward(left, right, cfg, device="cpu")
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and (a.cpu() != b).float().mean() <= 2e-3
+
+
+def test_u8_costs_on_card_are_bitwise_cpu(dev):
+    from primestereomatch_torch.models.gif_pipeline import sampled_u8_costs
+    from primestereomatch_torch.ops.cost_volume import unit_cost
+
+    left, right = _pair(72, 150, 3, 4)
+    views = torch.as_tensor(np.stack([left, right]))
+    cfg = GIFConfig(max_dis=24)
+    got = sampled_u8_costs(views.to(dev), cfg)
+    want = sampled_u8_costs(views, cfg)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(unit_cost(got).cpu(), unit_cost(want))
+
+
+@pytest.mark.parametrize("variant", [dict(pp_toolchain=True), dict(wmf_mode="table")],
+                         ids=["toolchain", "table"])
+def test_variant_forward_on_card_matches_cpu(dev, variant):
+    from primestereomatch_torch.utils import feature_index_color
+
+    left, right = _pair(64, 154, 5, 3)
+    cfg = GIFConfig(max_dis=16, med_sz=7, **variant)
+    extra = ()
+    if cfg.wmf_mode == "table":
+        to_u8 = lambda x: np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8)  # noqa: E731
+        lf, wm = feature_index_color(to_u8(left), n_feat=64, seed=0)
+        rf, _ = feature_index_color(to_u8(right), n_feat=64, seed=0)
+        extra = (lf, rf, wm)
+    K.reset_launches()
+    got = stereo_gif_forward(left, right, cfg, True, *extra)
+    # table mode's median is plain torch; the toolchain ends in K3
+    assert K.LAUNCHES["wmf"] == (0 if extra else 1) and K.LAUNCHES["lowmaps"] == 1
+    want = stereo_gif_forward(left, right, cfg, True, *extra, device="cpu")
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and (a.cpu() != b).float().mean() <= 2e-3
+
+
+def test_joint_wmf_float_goes_through_k3(dev):
+    """Exact mode with at most 256 levels launches K3 once, bitwise its
+    plain version (the same call with a mask of ones takes the plain op)."""
+    from primestereomatch_torch.ops.jointwmf import joint_wmf_float
+
+    rng = np.random.default_rng(6)
+    disp = torch.as_tensor((rng.random((40, 70)) * 30.0).astype(np.float32), device=dev)
+    guide = torch.as_tensor(rng.integers(0, 256, (40, 70, 3), dtype=np.uint8), device=dev)
+    K.reset_launches()
+    got = joint_wmf_float(disp, guide, radius=5, n_levels=64)
+    assert K.LAUNCHES["wmf"] == 1 and got.device.type == "cuda"
+    plain = joint_wmf_float(disp, guide, radius=5, n_levels=64,
+                            valid=torch.ones(40, 70, device=dev))
+    assert K.LAUNCHES["wmf"] == 1
+    assert torch.equal(got, plain)
+
+
+def test_dispest_stages_on_card_match_cpu(dev, tmp_path):
+    from primestereomatch_torch import DispEst
+    from primestereomatch_torch.utils.png import read_png
+
+    left, right = _pair(72, 150, 4, 5)
+    cfg = GIFConfig(max_dis=16, med_sz=7)
+    card, cpu = DispEst(cfg), DispEst(cfg, device="cpu")
+    cv, cv_c = card.cost_const(left, right), cpu.cost_const(left, right)
+    for a, b in zip(cv, cv_c):
+        assert a.device.type == "cuda" and torch.allclose(a.cpu(), b, atol=1e-6)
+    cvf = card.cost_filter(left, cv[0])
+    assert torch.allclose(cvf.cpu(), cpu.cost_filter(left, cv[0].cpu()), atol=1e-5)
+    wta = card.disp_select(cvf)
+    assert torch.equal(wta.cpu(), cpu.disp_select(cvf.cpu()))
+    K.reset_launches()
+    pp = card.post_process(wta, left)
+    assert K.LAUNCHES["wmf"] == 1
+    _agree(pp, cpu.post_process(wta.cpu(), left))
+    paths = card.dump_cost_volume(cv[0][:3], str(tmp_path / "cv_"))
+    want = np.clip(np.rint(cv[0][:3].cpu().numpy() * 255.0), 0, 255).astype(np.uint8)
+    assert all(np.array_equal(read_png(p, 1), w) for p, w in zip(paths, want))
+    got = card.compute(left, right)
+    ref = stereo_gif_forward(left, right, cfg)
+    assert all((a != b).float().mean() <= 2e-3 for a, b in zip(got, ref))

@@ -55,10 +55,12 @@ def test_crop_matches_jax_pipeline(crop, run_postprocess):
     JaxGIFConfig(),
     JaxGIFConfig(subsample=2, max_dis=32, tau1=0.3, tau2=0.05, med_sz=9,
                  wta_impl="xla", tail_fusion="full"),
-], ids=["default", "s2_d32_tau"])
+    JaxGIFConfig(cvc_dtype="u8", wmf_mode="table", pp_toolchain=True, wmf_n_feat=128,
+                 sig_clr=0.2, sig_dis=5.0),
+], ids=["default", "s2_d32_tau", "variants"])
 def test_from_jax_config_round_trips(jax_cfg):
-    """Every field the port reads comes across, `tail_fusion` included; the
-    TPU selectors are dropped."""
+    """Every field the port reads comes across, `tail_fusion` and the
+    variants' fields included; the TPU selectors are dropped."""
     cfg = from_jax_config(dataclasses.asdict(jax_cfg))
     assert dataclasses.asdict(cfg) == {k: v for k, v in dataclasses.asdict(jax_cfg).items()
                                        if k not in TPU_SELECTORS}
@@ -100,9 +102,16 @@ def test_config_rejects_unknown_values(field, value):
 @pytest.mark.parametrize("field,value", [
     ("cvc_dtype", "u8"), ("wmf_mode", "table"), ("pp_toolchain", True),
 ])
-def test_config_raises_for_values_not_ported(field, value):
-    with pytest.raises(NotImplementedError):
-        GIFConfig(**{field: value})
+def test_config_runs_every_value_the_jax_package_runs(crop, field, value):
+    """The uint8 cost, table mode and the post-processing toolchain
+    construct, come across from a JAX config, and run on a crop (against
+    the JAX forward: tests/test_torch_variants.py)."""
+    kw = dict(max_dis=16, med_sz=7, **{field: value})
+    cfg = from_jax_config(dataclasses.asdict(JaxGIFConfig(**kw)))
+    assert cfg == GIFConfig(**kw) and getattr(cfg, field) == value
+    got = stereo_gif_forward(crop[0], crop[1], cfg, device="cpu")
+    assert all(g.dtype == torch.uint8 and g.shape == crop[0].shape[:2] for g in got)
+    assert min(int(g.min()) for g in got) >= 1 and max(int(g.max()) for g in got) < 16
 
 
 def test_forward_without_device_needs_cuda(crop):

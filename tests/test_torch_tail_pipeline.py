@@ -101,12 +101,10 @@ def test_batch_matches_jax_batch(teddy):
 def test_batch_rejects_what_it_does_not_run(teddy):
     l = np.stack([teddy[0][:64, :128]] * 2)
     cfg = GIFConfig(max_dis=16)
-    # pp_toolchain is not ported yet, so GIFConfig refuses it at construction;
-    # the batch entry point's own guard is reached by a config that carries it
-    toolchain = GIFConfig(max_dis=16)
-    object.__setattr__(toolchain, "pp_toolchain", True)
-    with pytest.raises(ValueError, match="exact-WMF"):
-        stereo_gif_forward_batch(l, l, toolchain, device="cpu")
+    # the toolchain and table mode run on single frames only, as in the JAX package
+    for kw in (dict(pp_toolchain=True), dict(wmf_mode="table")):
+        with pytest.raises(ValueError, match="exact-WMF"):
+            stereo_gif_forward_batch(l, l, GIFConfig(max_dis=16, **kw), device="cpu")
     with pytest.raises(ValueError):
         stereo_gif_forward_batch(l, l[:, :, :-4], cfg, device="cpu")
     with pytest.raises(ValueError):
