@@ -50,10 +50,12 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      of each kernel and its plain version, K1's, K2's, K4's and K10's launch
      shapes (tile, chunk, shared memory, ptxas registers) and their times
      in a few shapes that were tried and rejected (tune_gif_tail.py builds
-     and times them; K1's at Teddy and at subsample=1), K6's and K9's launch
-     shapes and their times in the shapes tried (tune_bt_cost.py,
-     tune_speckle.py), the speckle hook as the plain-torch ops it was
-     before K9 took it in, K3's bin-window passes per block,
+     and times them; K1's at Teddy and at subsample=1), K6's, K8's and K9's
+     launch shapes and their times in the shapes tried (tune_bt_cost.py,
+     tune_select.py, tune_speckle.py; K8's from the partials and from the
+     int32 S, with the kernel instance's registers from the build log, and
+     its device time by the profiler), the speckle hook as the plain-torch
+     ops it was before K9 took it in, K3's bin-window passes per block,
      K7's bytes per (pixel, d) by its own count, the rate that follows,
      its time at four ring sizes and on 8 image rows alone, end-to-end frame
      times (host clock, synchronised; 10 frames for the 2K GIF paths), a
@@ -101,7 +103,9 @@ import torch
 import primestereomatch_torch as psm
 import tune_bt_cost
 import tune_gif_tail as tune
+import tune_select
 import tune_speckle
+from tune_bt_cost import profiled_ms
 from primestereomatch_torch import kernels as K
 from primestereomatch_torch.kernels import _build, cvc_lowmaps, sgbm_scan
 from primestereomatch_torch.kernels.bt_cost import launch_shape as bt_launch_shape
@@ -113,6 +117,7 @@ from primestereomatch_torch.kernels.lowmaps import RUN as K1_RUN
 from primestereomatch_torch.kernels.lowmaps import TILE as K1_TILE
 from primestereomatch_torch.kernels.lowmaps import block_shape as k1_block_shape
 from primestereomatch_torch.kernels.lowmaps import chain_smem_bytes
+from primestereomatch_torch.kernels.select import launch_shape as select_launch_shape
 from primestereomatch_torch.kernels.speckle import launch_shape as speckle_launch_shape
 from primestereomatch_torch.kernels import wta as wta_mod
 from primestereomatch_torch.models.gif_pipeline import (
@@ -218,24 +223,6 @@ def timed_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
-
-
-def profiled_ms(fn, kernel: str = "", iters: int = ITERS) -> float:
-    """Device ms per call of `fn` in the kernels whose names hold `kernel`
-    (all of them by default), from torch.profiler: the kernels' own time,
-    without the host's gaps between launches that back-to-back CUDA events
-    see at small shapes. Device rows are those with no host time, as in
-    `profile_frames`."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if kernel in e.key and e.self_cpu_time_total == 0) / 1e3 / iters
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
@@ -703,6 +690,18 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
     check("select", [(disp, disp_p), (K.select_disparity(S, *sel), disp_p)],
           f"(H,W,D)={tuple(S.shape)} uniq/d12/minD={sel}, from the partials and from the "
           f"int32 S")
+    # the launch shape of each entry, its instance's registers, and the
+    # threads tried (tune_select.py; each bitwise the shipped shape)
+    row["select"]["design"] = {}
+    for n_partials, costs in ((len(parts), parts), (0, (S,))):
+        shape = select_launch_shape(*S.shape, n_partials)
+        row["select"]["design"]["int32" if n_partials == 0 else "partials"] = {
+            **shape,
+            **tune_select.instance_resources(_build.BUILD_LOGS["select"], n_partials, shape),
+            "tried_ms": {f"{t} threads": {"ms": ms, "device_ms": dev_ms}
+                         for t, (ms, dev_ms) in tune_select.variant_ms(
+                             costs, n_partials, sel, disp).items()}}
+    log(f"design {name} select: {row['select']['design']}")
     _, labels, conns = sgbm_ops.speckle_graph(disp, 16 * cfg.speckle_range,
                                               (cfg.min_disparity - 1) * 16)
     links = K.pack_links(*conns)
@@ -772,6 +771,8 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
     scan["int32_bytes_per_value"] = sgbm_scan.bytes_per_value(nd, cost.element_size(), False)
     scan["int32_tb_per_s"] = n * scan["int32_bytes_per_value"] / scan["int32_ms"] / 1e9
     row["select"]["int32_ms"] = cuda_ms(lambda: K.select_disparity(S, *sel))
+    row["select"]["device_ms"] = profiled_ms(lambda: K.select_disparity_partials(parts, *sel),
+                                             "select_kernel")
     ring = sgbm_scan.RING_BYTES
     scan["ring_ms"] = {}
     for nbytes in (4096, 8192, 16384, 32768):
@@ -787,7 +788,8 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
     log(f"time {name} sgbm_scan moves {scan['bytes_per_value']} B per (pixel, d): "
         f"{scan['tb_per_s']:.3f} TB/s; the int32 S entry {scan['int32_ms']:.4f} ms "
         f"({scan['int32_bytes_per_value']} B, {scan['int32_tb_per_s']:.3f} TB/s); select from "
-        f"the int32 S {row['select']['int32_ms']:.4f} ms; ring bytes per warp -> ms "
+        f"the int32 S {row['select']['int32_ms']:.4f} ms, from the partials "
+        f"{row['select']['device_ms']:.4f} ms of device time (profiler); ring bytes per warp -> ms "
         f"{ {k: round(v, 4) for k, v in scan['ring_ms'].items()} } (in use: {ring}); the first "
         f"8 rows alone {scan['rows8_ms']:.4f} ms")
     report[name] = row
@@ -1366,7 +1368,8 @@ def run(tables: dict) -> int:
             for key, rep_k in (("at", t), ("at_2k", k2)):
                 row[f"passes_{key}"] = {"mean": rep_k["passes_mean"], "max": rep_k["passes_max"]}
         if kname in ("sgbm_scan", "select"):
-            extra = [key for key in t if key.startswith(("int32_", "bytes_", "tb_", "ring_", "rows8_"))]
+            extra = [key for key in t if key.startswith(("int32_", "bytes_", "tb_", "ring_", "rows8_",
+                                                         "device_"))]
             row["more"] = {"teddy": {key: t[key] for key in extra},
                            "2k": {key: k2[key] for key in extra}}
         if kname == "speckle":

@@ -52,7 +52,7 @@ _ARGTYPES = {
     "bt_cost": ("psm_bt_cost", [_VP, _VP, _VP] + [_I] * 8 + [_VP]),
     "sgbm_scan": ("psm_sgm_scan",
                   [_VP, _I, _I] + [_VP, _I, _I, _I, _I] * 2 + [_I] * 6 + [_VP]),
-    "select": ("psm_select_disparity", [_VP, _VP, _I, _VP] + [_I] * 6 + [_VP]),
+    "select": ("psm_select_disparity", [_VP, _VP, _I, _VP] + [_I] * 9 + [_VP]),
     "speckle": ("psm_speckle_sweep", [_VP] * 5 + [_I] * 7 + [_VP]),
     "segmin": ("psm_segmin_sweep", [_VP] * 3 + [_I] * 7 + [_VP]),
 }

@@ -401,38 +401,115 @@ def test_sgbm_scan_partials_at_the_edge_of_uint16(dev):
     assert torch.equal(sum(q.int() for q in parts), K.sgbm_aggregate_plain(cost, 600, p2, 8))
 
 
-@pytest.mark.parametrize("min_d", [-20, -3, 0, 7])
-@pytest.mark.parametrize("n_parts", [1, 2])
-@pytest.mark.parametrize("D", [16, 70])
-def test_select_kernel_from_partials_matches_plain(dev, min_d, n_parts, D):
-    """K8 adds one or two uint16 partials as it reads: bitwise the plain
-    selection on their int32 sum, and the int32 kernel on it."""
-    rng = np.random.default_rng(abs(min_d) + n_parts + D)
-    parts = tuple(torch.as_tensor(rng.integers(0, 47400, (21, 96, D)).astype(np.uint16),
-                                  device=dev) for _ in range(n_parts))
-    S = sum(q.int() for q in parts)
-    K.reset_launches()
-    got = K.select_disparity_partials(parts, 10, 1, min_d)
-    assert K.LAUNCHES["select"] == 1
-    assert torch.equal(got, K.select_disparity_plain(S, 10, 1, min_d))
-    assert torch.equal(got, K.select_disparity(S, 10, 1, min_d))
-    assert torch.equal(K.select_disparity_partials((S,), 10, 1, min_d), got)
+# K8's settings: every min_disparity (negative ones included), uniqueness
+# ratio and disp12_max_diff (-1: no LR check) of the tests, in every
+# combination
+SELECT_SETTINGS = [(min_d, uniq, d12) for min_d in (-20, -3, 0, 3, 7) for uniq in (0, 10, 15)
+                   for d12 in (-1, 0, 1, 5)]
 
 
-@pytest.mark.parametrize("min_d", [-20, -3, 0, 3, 7])
-@pytest.mark.parametrize("uniq,d12", [(10, 1), (0, 0), (10, -1)])
-def test_select_kernel_matches_plain(dev, min_d, uniq, d12):
-    rng = np.random.default_rng(abs(min_d) + uniq + d12)
-    S = torch.as_tensor(rng.integers(0, 5000, (21, 96, 16), dtype=np.int32), device=dev)
-    got = K.select_disparity(S, uniq, d12, min_d)
-    assert torch.equal(got, K.select_disparity_plain(S, uniq, d12, min_d))
+def _select_costs(dev, entry, values, shape, seed):
+    """(the costs handed to K8, their int32 sum S). entry: "s" the int32 S,
+    "one" / "two" that many uint16 partials. values: "wide" (two partials
+    sum beyond 65535), "ties" (0..3: first-min ties and ties in the far set),
+    "huge" (the int32 S only; per pixel one of: values up to 2**31 - 1, a
+    band of near-ties around 2**28 (the far set's sentinel), a band just
+    below 2**31: the uniqueness products and the sub-pixel sums wrap). A
+    tenth of the pixels get their minimum at d = 0, another tenth at
+    D - 1."""
+    rng = np.random.default_rng(seed)
+    n = {"s": 1, "one": 1, "two": 2}[entry]
+    if values == "huge":
+        assert entry == "s"
+        kind = rng.integers(0, 3, shape[:2])[None, :, :, None]
+        parts = np.where(kind == 0, rng.integers(0, 2**31, (n,) + shape),
+                         np.where(kind == 1, 2**28 + rng.integers(-4, 5, (n,) + shape),
+                                  2**31 - 1 - rng.integers(0, 9, (n,) + shape)))
+    else:
+        hi = 4 if values == "ties" else {"s": 5000, "one": 65536, "two": 47400}[entry]
+        parts = rng.integers(0, hi, (n,) + shape)
+    D = shape[-1]
+    if D > 1:
+        pick = rng.random(shape[:2])
+        parts[:, pick < 0.1, 0] = 0
+        far_end = pick > 0.9
+        parts[:, far_end] = np.maximum(parts[:, far_end], 1)
+        parts[:, far_end, D - 1] = 0
+    dt = np.int32 if entry == "s" else np.uint16
+    costs = tuple(torch.as_tensor(q.astype(dt), device=dev) for q in parts)
+    return costs, sum(q.int() for q in costs)
+
+
+def _select(costs, *sel):
+    if costs[0].dtype == torch.int32:
+        return K.select_disparity(costs[0], *sel)
+    return K.select_disparity_partials(costs, *sel)
+
+
+# D: one and three values (the scalar route, a far set only at d = 0), a
+# vector route of one lane's vector, Teddy's 64, one the vectors do not
+# divide (scalar), 96 and 128 (16 values a lane on the vector route), 2K's
+# 256, 301 (scalar, walked in chunks) and 520 (the vector route in chunks)
+@pytest.mark.parametrize("entry,values", [("s", "wide"), ("one", "wide"), ("two", "wide"),
+                                          ("s", "ties"), ("one", "ties"), ("two", "ties"),
+                                          ("s", "huge")])
+@pytest.mark.parametrize("D", [1, 3, 16, 64, 70, 96, 128, 256, 301, 520])
+def test_select_kernel_matches_plain(dev, D, entry, values):
+    """K8 from the int32 S, one or two uint16 partials (added as it reads):
+    bitwise the plain selection on their int32 sum, one launch a call, at
+    every setting; the partials' result is also the int32 kernel's on S."""
+    # rows D + 96 wide, so every min_disparity leaves columns inside the minX band
+    costs, S = _select_costs(dev, entry, values, (21, D + 96, D), D + len(entry) + len(values))
+    for sel in SELECT_SETTINGS:
+        min_d, uniq, d12 = sel
+        K.reset_launches()
+        got = _select(costs, uniq, d12, min_d)
+        assert K.LAUNCHES["select"] == 1
+        assert torch.equal(got, K.select_disparity_plain(S, uniq, d12, min_d)), sel
+        if entry != "s":
+            assert torch.equal(got, K.select_disparity(S, uniq, d12, min_d)), sel
+            assert torch.equal(K.select_disparity_partials((S,), uniq, d12, min_d), got)
+
+
+@pytest.mark.parametrize("entry", ["s", "one", "two"])
+@pytest.mark.parametrize("H,W,D", [(7, 1, 64), (1, 300, 64), (1, 300, 70),
+                                   (2, "limit", 64), (2, "limit", 3)])
+def test_select_kernel_at_row_edges(dev, entry, H, W, D):
+    """One-pixel rows, one-row images and rows at the wrapper's limit."""
+    from primestereomatch_torch.kernels.select import max_row
+
+    W = max_row() if W == "limit" else W
+    costs, S = _select_costs(dev, entry, "wide", (H, W, D), W + D)
+    for min_d, uniq, d12 in ((0, 10, 1), (-20, 15, 0), (7, 0, -1)):
+        got = _select(costs, uniq, d12, min_d)
+        assert torch.equal(got, K.select_disparity_plain(S, uniq, d12, min_d))
+    with pytest.raises(ValueError):
+        _select(tuple(torch.zeros((1, max_row() + 1, D), dtype=c.dtype, device=dev)
+                      for c in costs), 10, 1, 0)
+
+
+@pytest.mark.parametrize("entry", ["s", "two"])
+def test_select_kernel_unaligned_takes_the_scalar_route(dev, entry):
+    """Costs that start off a 16-byte boundary go the scalar route, bitwise."""
+    from primestereomatch_torch.kernels.select import launch_shape
+
+    costs, S = _select_costs(dev, entry, "wide", (13, 41, 64), 5)
+    # one value in: every pixel's base 2 or 4 bytes past a 16-byte boundary
+    shifted = tuple(c.reshape(-1)[1:1 + 13 * 40 * 64].view(13, 40, 64) for c in costs)
+    assert all(c.is_contiguous() and c.data_ptr() % 16 for c in shifted)
+    assert launch_shape(13, 40, 64, 0 if entry == "s" else 2, aligned=False)["route"] == "scalar"
+    S2 = sum(c.int() for c in shifted)
+    assert torch.equal(_select(shifted, 10, 1, 0), K.select_disparity_plain(S2, 10, 1, 0))
 
 
 def test_select_kernel_degenerate(dev):
+    """A V-shaped cost (d_best 3), equal values everywhere (the first d),
+    d_best at 0 and at D - 1, and every value INT_MAX (the first d)."""
     D = 8
     d_idx = torch.arange(D, device=dev, dtype=torch.int32)
-    for S in ((d_idx - 3).abs() * 1000 + 10, torch.full((D,), 100, dtype=torch.int32,
-                                                       device=dev)):
+    for S in ((d_idx - 3).abs() * 1000 + 10, torch.full((D,), 100, dtype=torch.int32, device=dev),
+              d_idx * 7 + 1, (D - 1 - d_idx) * 7 + 1,
+              torch.full((D,), 2**31 - 1, dtype=torch.int32, device=dev)):
         S = S.expand(16, 80, D).contiguous()
         assert torch.equal(K.select_disparity(S, 10, 1), K.select_disparity_plain(S, 10, 1))
 

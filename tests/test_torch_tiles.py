@@ -16,6 +16,7 @@ from primestereomatch_torch.kernels.cvc_wta import TILE_ROWS as K10_TILE_ROWS
 from primestereomatch_torch.kernels.cvc_wta import TILE_X as K10_TILE_X
 from primestereomatch_torch.kernels.cvc_wta import plan_tile as k10_plan_tile
 from primestereomatch_torch.kernels.cvc_wta import smem_bytes as k10_smem_bytes
+from primestereomatch_torch.kernels import select as select_mod
 from primestereomatch_torch.kernels import speckle as speckle_mod
 from primestereomatch_torch.kernels.lowmaps import MAX_K, TILE, block_shape, chain_smem_bytes
 from primestereomatch_torch.ops.resize import linear_coeffs, low_window
@@ -320,3 +321,71 @@ def test_bt_cost_plan_refuses_what_no_instance_takes():
         bt_plan(5, 200, 4)
     with pytest.raises(ValueError, match="shared memory"):
         bt_plan(25, 3, 4, d_chunk=64)
+
+
+# ---- K8 (csrc/select.cu): route, lanes, values a lane and shared memory ---
+
+SELECT_ROW_LIMIT = 227 * 1024 // 12       # a block of 12 bytes a column: the row limit to keep
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n_partials", [0, 1, 2])
+@pytest.mark.parametrize("W", [1, 450, 2208, SELECT_ROW_LIMIT])
+def test_select_launch_shape_covers_every_disparity(W, n_partials, aligned):
+    """For D = 1..256: a block's shared memory fits, the lanes hold every
+    disparity (in one chunk where an instance holds the pixel), an instance
+    of csrc/select.cu serves the shape, and the 16-byte route is taken
+    exactly where the pixel's values fill whole aligned vectors."""
+    elt = 4 if n_partials == 0 else 2
+    for D in range(1, 257):
+        shape = select_mod.launch_shape(7, W, D, n_partials, aligned=aligned)
+        assert shape["smem"] == 12 * W <= _build.MAX_SMEM_BYTES
+        vector = aligned and (D * elt) % 16 == 0
+        assert shape["route"] == ("vector" if vector else "scalar")
+        assert shape["load_bytes"] == (16 if vector else elt)
+        lanes, vpl = shape["lanes"], shape["values_per_lane"]
+        assert lanes == (select_mod.LANES if vector else select_mod.SCALAR_LANES)
+        assert vpl in (select_mod.VALUES_PER_LANE if vector
+                       else select_mod.SCALAR_VALUES_PER_LANE)
+        assert vpl % (shape["load_bytes"] // elt) == 0     # whole loads a lane
+        assert lanes * vpl * shape["chunks"] >= D > lanes * vpl * (shape["chunks"] - 1)
+        if D <= lanes * vpl:
+            assert shape["chunks"] == 1
+            smaller = [v for v in (select_mod.VALUES_PER_LANE if vector
+                                   else select_mod.SCALAR_VALUES_PER_LANE) if v < vpl]
+            assert all(lanes * v < D for v in smaller)      # the smallest that holds it
+        assert 32 % lanes == 0 and shape["threads"] % 32 == 0
+        assert shape["threads"] <= select_mod.MAX_THREADS
+        assert shape["pixels_in_flight"] == shape["threads"] // lanes
+
+
+@pytest.mark.parametrize("n_partials,D,vpl,chunks", [(2, 64, 8, 1), (2, 256, 32, 1),
+                                                     (0, 64, 8, 1), (0, 256, 32, 1),
+                                                     (2, 70, 8, 1), (2, 520, 32, 3),
+                                                     (0, 520, 32, 3), (2, 3, 8, 1)])
+def test_select_launch_shape_at_the_shapes_driven(n_partials, D, vpl, chunks):
+    """Teddy (D = 64) and 2K (D = 256) from the partials or the int32 S: 8
+    lanes a pixel, one chunk, 512 threads (64 pixels a block at once); D =
+    70 and 3 take the scalar route, D = 520 the chunks."""
+    shape = select_mod.launch_shape(375, 450, D, n_partials)
+    assert (shape["values_per_lane"], shape["chunks"], shape["threads"]) == (vpl, chunks, 512)
+    assert shape["route"] == ("scalar" if D in (70, 3) else "vector")
+    assert shape["lanes"] == (32 if D in (70, 3) else 8)
+
+
+def test_select_row_limit_does_not_shrink():
+    assert select_mod.max_row() == SELECT_ROW_LIMIT == 19370
+    select_mod.launch_shape(1, SELECT_ROW_LIMIT, 64, 2)
+    with pytest.raises(ValueError, match="rows of at most 19370"):
+        select_mod.launch_shape(1, SELECT_ROW_LIMIT + 1, 64, 2)
+
+
+def test_select_launch_shape_refuses_what_no_block_takes():
+    with pytest.raises(ValueError):
+        select_mod.launch_shape(1, 10, 0, 2)                 # no disparity
+    with pytest.raises(ValueError):
+        select_mod.launch_shape(1, 10, 64, 3)                # three partials
+    with pytest.raises(ValueError):
+        select_mod.launch_shape(1, 10, 64, 2, threads=1024)  # beyond __launch_bounds__
+    with pytest.raises(ValueError):
+        select_mod.launch_shape(1, 10, 64, 2, threads=100)   # not whole warps

@@ -41,6 +41,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled_ms(fn, kernel: str = "", iters: int = 20) -> float:
+    """Device ms per call of `fn` in the kernels whose names hold `kernel`
+    (all of them by default), from torch.profiler: the kernels' own time,
+    without the host's gaps between launches that back-to-back CUDA events
+    see at small shapes. Device rows are those with no host time, as in
+    chip_smoke.py's `profile_frames`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if kernel in e.key and e.self_cpu_time_total == 0) / 1e3 / iters
+
+
 def variant_ms(lf: torch.Tensor, rf: torch.Tensor, D: int, k: int, cost_bound: int,
                shapes=SHAPES) -> dict:
     """{(strip, d_chunk): ms} of K6 on these features, each shape's output
