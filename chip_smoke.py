@@ -79,7 +79,23 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      and its dump_cost_volume read back; ms per variant frame, the
      post-processing stages' device ms, DispEst's ms per stage and peak
      memory;
-  7. one JSON line listing the kernels, then the final status JSON line.
+  7. calibrated: the ZED HD720 calibration (data/intrinsics.yml,
+     data/extrinsics.yml) at HD720 (1280x720 an eye, crop 526x1016, an
+     exact stride) and at ZED-VGA (672x376, calib_size 1280x720, crop
+     274x530, a quasi width). Raw uint8 frames of a known two-level scene
+     (synthetic_pair in rectified coordinates, sampled at each raw pixel's
+     rectified coordinates) are rectified on the card by the port's
+     Rectifier, the remap bitwise the CPU's on uint8 and float32 and the
+     crops asserted; then matched (GIF: K4 -> K2 -> K3 and K10 -> K3 at
+     HD720, K1 -> K2 -> K3 at VGA; SGBM: K6-K9), each path with every
+     launch count set to 0 just before it and its kernels asserted; depth
+     and reprojected points (Q composed with the crop's translation) bitwise
+     the CPU's, each region's median disparity within 1 of its level and
+     its depth within 2% of f * B / d; each kernel of the paths against its
+     plain version at these shapes with the bounds of phase 3; ms by stage
+     (rectify, disparity, depth; CUDA events and the host clock), a
+     profiler pass per path and peak device memory;
+  8. one JSON line listing the kernels, then the final status JSON line.
 
 Needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and the package
 beside this script; it exits non-zero without them. A longer report goes
@@ -120,6 +136,7 @@ from primestereomatch_torch.kernels.lowmaps import chain_smem_bytes
 from primestereomatch_torch.kernels.select import launch_shape as select_launch_shape
 from primestereomatch_torch.kernels.speckle import launch_shape as speckle_launch_shape
 from primestereomatch_torch.kernels import wta as wta_mod
+from primestereomatch_torch.calib import Rectifier, load_stereo_calibration, undistort_points
 from primestereomatch_torch.models.gif_pipeline import (
     _to_u8,
     sampled_u8_costs,
@@ -129,8 +146,11 @@ from primestereomatch_torch.models.gif_pipeline import (
 from primestereomatch_torch.ops import postproc
 from primestereomatch_torch.ops import sgbm as sgbm_ops
 from primestereomatch_torch.ops.cost_volume import sampled_cost_volumes
+from primestereomatch_torch.ops.depth import disparity_to_depth, reproject_disparity
+from primestereomatch_torch.ops.geometry import fused_cvc_applies
 from primestereomatch_torch.ops.guided_filter import guide_stats
 from primestereomatch_torch.ops.jointwmf import joint_wmf
+from primestereomatch_torch.ops.remap import remap_bilinear
 from primestereomatch_torch.utils import bad_pixel_metrics, load_dataset
 from primestereomatch_torch.utils.png import read_png
 
@@ -186,6 +206,9 @@ GIF_TAGS = {"cvc_lowmaps_kernel": "cvc_lowmaps", "cvc_wta_kernel": "cvc_wta",
             "lowmaps_kernel": "lowmaps", "upsample_wta_kernel": "wta",
             "upsample_wta_staged_kernel": "wta",
             "joint_wmf_kernel": "wmf", "wmf_weights_kernel": "wmf"}
+SGBM_TAGS = {"bt_cost_kernel": "bt_cost", "sgm_scan_kernel": "sgbm_scan",
+             "select_kernel": "select", "speckle_rows_kernel": "speckle",
+             "speckle_cols_kernel": "speckle"}
 PROBE_D = (1, 8, 32, 63)   # the disparities of the reference's stage dumps
 GIF_KERNELS = ("lowmaps", "wta", "wmf", "cvc_lowmaps", "cvc_wta")
 SGBM_KERNELS = ("bt_cost", "sgbm_scan", "select", "speckle")
@@ -1084,6 +1107,344 @@ def gif_variants(dev, smi, drive, samples, frames, tables, left2k, right2k, rect
         f"{ {k: round(v, 3) for k, v in out['peak_gib'].items()} } ({smi})")
     return out
 
+# ---- the calibrated phase ---------------------------------------------------
+# one eye's (width, height), the calibration's size (None: the frame's), the
+# crop (rows, cols), the known field's levels (foreground, background) and
+# the GIF tails whose kernels each geometry drives
+CALIB_CASES = {
+    "hd720": ((1280, 720), None, (526, 1016), (40, 20),
+              {"gif": ("cvc_lowmaps", "wta", "wmf"), "gif_full": ("cvc_wta", "wmf")}),
+    "vga": ((672, 376), (1280, 720), (274, 530), (24, 12),
+            {"gif": ("lowmaps", "wta", "wmf")}),
+}
+# the JAX app's uint8 -> float32 scale (primestereomatch_tpu/app.py:249-250):
+# a float32 constant multiplied, not a division
+U8_TO_F32 = float(np.float32(1 / 255.0))
+
+
+def calibrated_scene(crop, img_size, levels, seed: int):
+    """A known scene in the rectified frame (img_size, one eye): the
+    synthetic pair over the whole frame, the foreground rectangle in the
+    middle half of the crop box. Returns the pair (float32 BGR in [0, 1])
+    and the rectangle in crop coordinates (rows, right-view columns)."""
+    x0, y0, x1, y1 = crop
+    h, w = y1 - y0, x1 - x0
+    rect = (h // 4, 3 * h // 4, w // 3, 2 * w // 3)
+    full = (rect[0] + y0, rect[1] + y0, rect[2] + x0, rect[3] + x0)
+    return (*synthetic_pair(img_size[1], img_size[0], seed, full, *levels), rect)
+
+
+def _bilinear(img: np.ndarray, xy: np.ndarray) -> np.ndarray:
+    """img (H, W, C) sampled at xy (..., 2) = (x, y), clamped to the edge."""
+    H, W = img.shape[:2]
+    x = np.clip(xy[..., 0], 0, W - 1)
+    y = np.clip(xy[..., 1], 0, H - 1)
+    xi = np.minimum(np.floor(x).astype(np.int64), W - 2)
+    yi = np.minimum(np.floor(y).astype(np.int64), H - 2)
+    fx, fy = (x - xi)[..., None], (y - yi)[..., None]
+    return ((img[yi, xi] * (1 - fx) + img[yi, xi + 1] * fx) * (1 - fy)
+            + (img[yi + 1, xi] * (1 - fx) + img[yi + 1, xi + 1] * fx) * fy)
+
+
+def raw_frames(calib: dict, rect, img_size, calib_size, scene) -> list:
+    """The raw camera frames (uint8 BGR) that see `scene`, a pair in the
+    rectified frame of `rect` (the Rectifier's StereoRectification): each
+    raw pixel of an eye takes the scene's bilinear sample at its rectified
+    coordinates (undistort_points with the eye's R and P and its default
+    iterations). The camera matrices are rescaled to img_size as the
+    Rectifier rescales them."""
+    w, h = img_size
+    M = [np.asarray(calib[k], np.float64) for k in ("M1", "M2")]
+    if calib_size is not None and tuple(calib_size) != tuple(img_size):
+        S = np.diag([w / calib_size[0], h / calib_size[1], 1.0])
+        M = [S @ m for m in M]
+    gx, gy = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+    uv = np.stack([gx, gy], axis=-1)
+    frames = []
+    for m, dist, R, P, view in zip(M, (calib["D1"], calib["D2"]), (rect.R1, rect.R2),
+                                   (rect.P1, rect.P2), scene):
+        xy = undistort_points(uv, m, dist, R=R, P=P)
+        frames.append(np.clip(np.rint(_bilinear(view, xy) * 255), 0, 255).astype(np.uint8))
+    return frames
+
+
+def field_regions(rect, levels, D: int, m: int = 16) -> dict:
+    """Interior regions of the known field in the left view (crop
+    coordinates), each with its level: the foreground rectangle shifted by
+    its disparity, and the background band above it, right of the columns
+    without a match."""
+    y0, y1, x0, x1 = rect
+    d_fg, d_bg = levels
+    return {"fg": ((slice(y0 + m, y1 - m), slice(x0 + d_fg + m, x1 + d_fg - m)), d_fg),
+            "bg": ((slice(m, y0 - m), slice(D + m, x1 + d_fg)), d_bg)}
+
+
+def check_field(label: str, disp: np.ndarray, depth: np.ndarray, regions: dict, Q) -> dict:
+    """Median disparity of each region within 1 of its level (NaN marks
+    invalid pixels), and the median depth of its valid pixels within 2% of
+    f * B / d (f = Q[2, 3], B = 1 / |Q[3, 2]|)."""
+    out = {}
+    for key, (box, want) in regions.items():
+        med = float(np.nanmedian(disp[box]))
+        dep = depth[box]
+        dep_med = float(np.median(dep[dep > 0]))
+        want_z = Q[2, 3] / abs(Q[3, 2]) / want
+        out[key] = {"median_disparity": med, "level": want, "median_depth": dep_med,
+                    "depth_rel_err": abs(dep_med - want_z) / want_z}
+        if not abs(med - want) <= 1 or out[key]["depth_rel_err"] > 0.02:
+            raise AssertionError(f"{label} {key}: {out[key]} (disparity within 1, depth 2%)")
+    return out
+
+
+def stage_ms(fn) -> dict:
+    """ms per call of one stage: CUDA events, the host clock (synchronised)
+    and the profiler's device time."""
+    return {"events": cuda_ms(fn), "host": frame_ms(fn, ITERS),
+            "device": profile_frames(fn, {})["device_ms"]}
+
+
+def calib_kernel_parity(name: str, pair_u8, cfg, scfg, dev) -> dict:
+    """Each kernel of the calibrated paths against its plain version on the
+    rectified pair, with the bounds of the earlier phases, the kernel's ms
+    (CUDA events), its plain version's ms (one call) and its bound. The
+    GIF kernels of the geometry's tails (K4, K10 at an exact stride, else
+    K1), K2 and K3; K6-K9."""
+    row = {}
+
+    def record(kname, what, got_ms, plain_ms, bnd, **vals):
+        row[kname] = {**vals, "ms": got_ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                      "bound_by": bnd[1], "shape": what}
+        log(f"calibrated {name} {kname} {what}: {vals}; kernel {got_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (one call), bound {bnd[0]:.5f} ms ({bnd[1]})")
+
+    l_f, r_f = (t.to(torch.float32) * U8_TO_F32 for t in pair_u8)
+    views, grds = stacked_views(l_f[None], r_f[None], cfg)
+    B2, H, W, _ = views.shape
+    s, k, D = cfg.subsample, cfg.fgf_low_radius, cfg.max_dis
+    stats = guide_stats(views, (H // s, W // s), k, cfg.gif_eps).contiguous()
+    cost = dict(alpha=cfg.alpha, border_cost=cfg.border_cost, tau1=cfg.tau1, tau2=cfg.tau2)
+
+    def maps_check(kname, fk, fp, bnd, what):
+        maps_p, plain_ms = timed_once(fp)
+        maps_k = fk()
+        err = (maps_k - maps_p).abs()
+        record(kname, what, cuda_ms(fk), plain_ms, bnd(maps_p), max_abs_err=float(err.max()),
+               n_differ=int((err > 0).sum()), n=maps_k.numel())
+        if not torch.allclose(maps_k, maps_p, atol=2e-4, rtol=1e-3):
+            raise AssertionError(f"{kname} disagrees with its plain version at {name}")
+        return maps_k, maps_p
+
+    def disp_check(kname, fk, fp, bnd, what, bound_frac=2e-3):
+        disp_p, plain_ms = timed_once(fp)
+        disp_k = fk()
+        diff = (disp_k.int() - disp_p.int()).abs()
+        frac = float((diff > 0).float().mean())
+        record(kname, what, cuda_ms(fk), plain_ms, bnd(disp_p), max_abs_err=int(diff.max()),
+               mismatch=frac, n_differ=int((diff > 0).sum()), n=diff.numel())
+        if frac > bound_frac or (kname != "wmf" and int(disp_k.min()) < 1):
+            raise AssertionError(f"{kname} disagrees with its plain version at {name}")
+        return disp_k, disp_p
+
+    shape = f"views {(B2, H, W)} D={D}"
+    if fused_cvc_applies(W, D, s):
+        maps_k, maps_p = maps_check(
+            "cvc_lowmaps", lambda: K.cvc_low_maps(views, grds, stats, D, k, **cost),
+            lambda: K.cvc_low_maps_plain(views, grds, stats, D, k, **cost),
+            lambda _: bound_cvc_lowmaps(views, grds, stats, D, k), shape)
+        full_k, _ = disp_check(
+            "cvc_wta", lambda: K.cvc_wta(views, grds, stats, D, k, **cost),
+            lambda: K.cvc_wta_plain(views, grds, stats, D, k, **cost),
+            lambda _: bound_cvc_wta(views, grds, stats, D, k), shape)
+        n2 = int((full_k != K.upsample_wta(views, maps_k)).sum())
+        row["cvc_wta"]["n_differ_vs_k4_k2"] = n2
+        log(f"calibrated {name} cvc_wta vs cvc_lowmaps -> upsample_wta on the card: {n2} px "
+            f"differ (0 required)")
+        if n2:
+            raise AssertionError(f"cvc_wta is not bitwise cvc_lowmaps -> upsample_wta at {name}")
+    else:
+        p2 = sampled_cost_volumes(views, grds, D, (H // s, W // s), **cost)
+        maps_k, maps_p = maps_check(
+            "lowmaps", lambda: K.low_maps(p2, stats, k), lambda: K.low_maps_plain(p2, stats, k),
+            lambda _: bound_lowmaps(p2, k), f"(B,D,h,w)={tuple(p2.shape)} k={k}")
+        del p2
+    _, disp_p = disp_check("wta", lambda: K.upsample_wta(views, maps_p),
+                           lambda: K.upsample_wta_plain(views, maps_p),
+                           lambda _: bound_wta(views, maps_p), f"(B,H,W,D)={(B2, H, W, D)}")
+    g_u8 = _to_u8(views).contiguous()
+    r, sig = cfg.wmf_radius, cfg.wmf_sigma
+    disp_check("wmf", lambda: K.weighted_median(disp_p, g_u8, r, D, sig),
+               lambda: K.weighted_median_plain(disp_p, g_u8, r, D, sig),
+               lambda med: bound_wmf(disp_p, med, r, D), f"(B,H,W)={(B2, H, W)} r={r} bins={D}",
+               bound_frac=0.0)
+    del views, grds, stats, maps_k, maps_p, disp_p, g_u8
+    torch.cuda.empty_cache()
+
+    # SGBM: every stage is integer, so each kernel is held bit for bit
+    lf, rf = (sgbm_ops.sobel_xclip(t, scfg.pre_filter_cap) for t in pair_u8)
+    D, k, nd = scfg.num_disparities, scfg.block_size, scfg.num_directions
+    cost_bound = k * k * lf.shape[2] * 2 * scfg.pre_filter_cap
+    sel = (scfg.uniqueness_ratio, scfg.disp12_max_diff, scfg.min_disparity)
+
+    def exact(kname, fk, fp, bnd, what, reduce=lambda x: x):
+        want, plain_ms = timed_once(fp)
+        got = fk()
+        diff = (reduce(got).to(torch.int64) - want.to(torch.int64)).abs()
+        record(kname, what, cuda_ms(fk), plain_ms, bnd(want), max_abs_err=int(diff.max()),
+               n_differ=int((diff > 0).sum()), n=diff.numel())
+        if row[kname]["n_differ"]:
+            raise AssertionError(f"{kname} disagrees with its plain version at {name}")
+        return got, want
+
+    what = f"(H,W,D)={(H, W, D)}"
+    c, _ = exact("bt_cost", lambda: K.bt_cost(lf, rf, D, k, cost_bound),
+                 lambda: K.bt_cost_plain(lf, rf, D, k, cost_bound),
+                 lambda want: bound_bt_cost(lf, want), what + f" k={k}")
+    parts, S = exact("sgbm_scan",
+                     lambda: K.sgbm_aggregate_partials(c, scfg.p1, scfg.p2, nd, cost_bound),
+                     lambda: K.sgbm_aggregate_plain(c, scfg.p1, scfg.p2, nd),
+                     lambda _: bound_scan(c, nd),
+                     what + f" {nd} directions, two uint16 partials summed",
+                     reduce=lambda q: sum(x.int() for x in q))
+    disp, _ = exact("select", lambda: K.select_disparity_partials(parts, *sel),
+                    lambda: K.select_disparity_plain(S, *sel), lambda _: bound_select(S.shape),
+                    what + " from the partials")
+    if len(parts) != 2:
+        raise AssertionError(f"expected two uint16 partials at {name}, got {len(parts)}")
+    del c, parts, S
+    _, labels, conns = sgbm_ops.speckle_graph(disp, 16 * scfg.speckle_range,
+                                              (scfg.min_disparity - 1) * 16)
+    links = K.pack_links(*conns)
+    exact("speckle", lambda: K.speckle_sweep(labels, links),
+          lambda: K.speckle_sweep_plain(labels, links), lambda _: bound_sweep(labels),
+          f"(H,W)={tuple(labels.shape)} one sweep")
+    torch.cuda.empty_cache()
+    return row
+
+
+def calibrated(dev, smi) -> dict:
+    """The calibrated phase: the ZED HD720 calibration (data/intrinsics.yml,
+    data/extrinsics.yml) at HD720 and at ZED-VGA (calib_size 1280x720).
+    Raw frames of a known scene are rectified on the card (the remap bitwise
+    the CPU's, the crop asserted), matched by STEREO_GIF on each of the
+    geometry's tails and by STEREO_SGBM, each path with every launch count
+    set to 0 just before it and read just after and its kernels asserted,
+    and turned into depth (bitwise the CPU's; each region's disparity within
+    1 of its level and its depth within 2% of f * B / d). Then each kernel
+    of the paths against its plain version at these shapes, ms by stage
+    (CUDA events, the host clock, the profiler's device time), a profiler
+    pass per path and peak device memory."""
+    calib = load_stereo_calibration(str(ROOT / "data" / "intrinsics.yml"),
+                                    str(ROOT / "data" / "extrinsics.yml"))
+    cfg, scfg = psm.GIFConfig(), psm.SGBMConfig()
+    cfgs = {"gif": cfg, "gif_full": psm.GIFConfig(tail_fusion="full")}
+    out: dict = {"launches": {}}
+    for name, (size, calib_size, crop_hw, levels, gif_routes) in CALIB_CASES.items():
+        rec = Rectifier(calib, size, calib_size=calib_size, device=dev)
+        x0, y0, x1, y1 = rec.crop
+        if (y1 - y0, x1 - x0) != crop_hw:
+            raise AssertionError(f"{name}: crop {rec.crop} is not {crop_hw}")
+        Q = rec.rect.Q
+        # Q of the crop's coordinates: (x, y) of the crop are (x + x0, y + y0)
+        Q_crop = Q @ np.array([[1, 0, 0, x0], [0, 1, 0, y0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                              np.float64)
+        scene_l, scene_r, rect = calibrated_scene(rec.crop, size, levels, 5)
+        raw_np = raw_frames(calib, rec.rect, size, calib_size, (scene_l, scene_r))
+        raw = tuple(torch.as_tensor(a, device=dev) for a in raw_np)     # uploaded once
+        res: dict = {"crop": list(rec.crop), "crop_hw": list(crop_hw), "card": smi}
+
+        # the Rectifier on the card against the plain remap on the CPU, uint8
+        # and float32
+        pair = rec(*raw)
+        cpu_maps = [m[y0:y1, x0:x1].cpu() for m in (rec.map_l, rec.map_r)]
+        n_u8 = sum(int((g.cpu() != remap_bilinear(torch.from_numpy(a), m)).sum())
+                   for g, a, m in zip(pair, raw_np, cpu_maps))
+        raw_f = [torch.from_numpy(a).to(torch.float32) * U8_TO_F32 for a in raw_np]
+        n_f32 = sum(int((g.cpu() != remap_bilinear(f, m)).sum())
+                    for g, f, m in zip(rec(*(f.to(dev) for f in raw_f)), raw_f, cpu_maps))
+        scene_err = float(np.abs(pair[0].cpu().numpy() / 255.0 - scene_l[y0:y1, x0:x1]).mean())
+        res["remap_mismatch"] = {"u8": n_u8, "f32": n_f32}
+        log(f"calibrated {name}: raw {size[0]}x{size[1]} (calib_size {calib_size}) -> crop "
+            f"{rec.crop} = {crop_hw}; remap card vs CPU: {n_u8} uint8 and {n_f32} float32 values "
+            f"differ (0 required); rectified left vs the scene: mean |diff| {scene_err:.4f}")
+        if n_u8 or n_f32 or tuple(pair[0].shape) != (*crop_hw, 3):
+            raise AssertionError(f"{name}: the remap on the card is not the CPU's")
+
+        def drive(label, expect, run):
+            torch.cuda.synchronize()
+            K.reset_launches()
+            got = run()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+            log(f"calibrated main path {name} {label}: launches {counts}")
+            if set(counts) != set(expect):
+                raise AssertionError(f"{name} {label} launched {counts}, expected exactly "
+                                     f"{expect}")
+            out["launches"][f"{name}_{label}"] = counts
+            return got
+
+        def gif_disp(lr, c):
+            return psm.stereo_gif_forward(lr[0].to(torch.float32) * U8_TO_F32,
+                                          lr[1].to(torch.float32) * U8_TO_F32, c, device=dev)
+
+        def sgbm_disp(lr):
+            return psm.stereo_sgbm_forward(*lr, scfg, device=dev).to(torch.float32) * (
+                1 / sgbm_ops.DISP_SCALE)
+
+        paths = {key: (lambda lr, c=cfgs[key]: gif_disp(lr, c)[0], gif_routes[key])
+                 for key in gif_routes}
+        paths["sgbm"] = (sgbm_disp, SGBM_KERNELS)
+        regions = field_regions(rect, levels, cfg.max_dis)
+        res["paths"] = {}
+        for key, (disp_fn, expect) in paths.items():
+            def frame(disp_fn=disp_fn):
+                d = disp_fn(rec(*raw))
+                return d, disparity_to_depth(d, Q)
+
+            d, z = drive(key, expect, frame)
+            d_cpu = d.cpu()
+            n_z = int((z.cpu() != disparity_to_depth(d_cpu, Q)).sum())
+            pts = reproject_disparity(d, Q_crop)
+            n_p = int((pts.cpu() != reproject_disparity(d_cpu, Q_crop)).sum())
+            disp_np = d_cpu.numpy().astype(np.float64)
+            disp_np[disp_np <= 0] = np.nan
+            field = check_field(f"{name} {key}", disp_np, z.cpu().numpy(), regions, Q)
+            log(f"calibrated {name} {key}: depth card vs CPU {n_z} values differ, reprojected "
+                f"points {n_p} (0 required); regions {field}")
+            if n_z or n_p:
+                raise AssertionError(f"{name} {key}: depth on the card is not the CPU's")
+            # ms by stage (the rectify stage is the same for every path of a
+            # geometry): CUDA events, the host clock and the profiler's device
+            # time, inputs on the card
+            lr = rec(*raw)
+            stages = {"disparity": lambda: disp_fn(lr), "depth": lambda: disparity_to_depth(d, Q)}
+            if "rectify" not in res:
+                res["rectify"] = stage_ms(lambda: rec(*raw))
+                # beside it, in this call: remap_bilinear op by op on each
+                # eye's crop of the maps (the taps recomputed every frame)
+                crop_maps = [m[y0:y1, x0:x1] for m in (rec.map_l, rec.map_r)]
+                res["rectify_op_by_op"] = stage_ms(
+                    lambda: [remap_bilinear(t, m) for t, m in zip(raw, crop_maps)])
+                log(f"calibrated {name}: rectify (events / host / device) "
+                    f"{tuple(round(x, 4) for x in res['rectify'].values())} ms, remap_bilinear "
+                    f"op by op {tuple(round(x, 4) for x in res['rectify_op_by_op'].values())} ms")
+            ms = {"rectify": res["rectify"], **{st: stage_ms(fn) for st, fn in stages.items()}}
+            e2e = end_to_end(f"calibrated {name} {key}", frame, {**GIF_TAGS, **SGBM_TAGS},
+                             "raw uint8 pair on the card -> rectify -> disparity -> depth",
+                             ITERS)
+            res["paths"][key] = {"field": field, "ms_by_stage": ms, "e2e": e2e,
+                                 "peak_gib": peak_gib(frame), "launches": out["launches"][
+                                     f"{name}_{key}"]}
+            log(f"calibrated {name} {key}: ms by stage (events / host / device) "
+                f"{ {st: tuple(round(x, 4) for x in v.values()) for st, v in ms.items()} }, "
+                f"frame {e2e['ms_per_frame']:.3f} ms, peak "
+                f"{res['paths'][key]['peak_gib']:.3f} GiB ({smi})")
+            del d, z, pts, lr
+        res["kernels"] = calib_kernel_parity(name, pair, cfg, scfg, dev)
+        out[name] = res
+        del raw, pair
+        torch.cuda.empty_cache()
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1297,9 +1658,6 @@ def run(tables: dict) -> int:
     torch.cuda.empty_cache()
 
     e2e = {}
-    sgbm_tags = {"bt_cost_kernel": "bt_cost",
-                 "sgm_scan_kernel": "sgbm_scan", "select_kernel": "select",
-                 "speckle_rows_kernel": "speckle", "speckle_cols_kernel": "speckle"}
     gif_runs = {
         "teddy": (frames["Teddy"], cfg, ITERS, "both views + JointWMF"),
         "2k": (frames["2k"], cfg2k, 10, "K4 -> K2 -> K3"),
@@ -1316,7 +1674,7 @@ def run(tables: dict) -> int:
         l_u, r_u = sframes["Teddy" if n == "teddy" else "2k"]
         e2e[f"sgbm_{n}"] = end_to_end(
             f"SGBM {n}", lambda: psm.stereo_sgbm_forward(l_u, r_u, sc, device=dev),
-            sgbm_tags, f"{sc.mode}, D={sc.num_disparities}, speckle filter", ITERS)
+            SGBM_TAGS, f"{sc.mode}, D={sc.num_disparities}, speckle filter", ITERS)
     torch.cuda.synchronize()
     peak = {"run": torch.cuda.max_memory_allocated() / 2**30}
 
@@ -1329,6 +1687,12 @@ def run(tables: dict) -> int:
     log(f"peak device memory (GiB, the resident input frames included): over the run "
         f"{peak['run']:.2f}; one GIF 2K frame on the maps path {peak['gif_2k_maps']:.2f}, with "
         f"tail_fusion='full' {peak['gif_2k_full']:.2f}; one SGBM 2K frame {peak['sgbm_2k']:.2f}")
+
+    # ---- the calibrated phase: counts at 0 just before each path ----------
+    cal = calibrated(dev, smi)
+    cal_launches = {k: sum(c.get(k, 0) for c in cal["launches"].values())
+                    for k in GIF_KERNELS + SGBM_KERNELS}
+    log(f"calibrated main paths, launches summed: {cal_launches}")
 
     rows = []
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1343,7 +1707,8 @@ def run(tables: dict) -> int:
             "name": kname, "route": "cuda",
             "source": f"primestereomatch_torch/csrc/{kname}.cu",
             "replaces": TPU_KERNEL[kname],
-            "launches": launches[kname] if kname in GIF_KERNELS else slaunches[kname],
+            "launches": (launches[kname] if kname in GIF_KERNELS else slaunches[kname])
+            + cal_launches[kname],
             **{key: t[key] for key in timed}, "library_ms": None, "at": at,
             "at_2k": {key: k2[key] for key in timed},
             "mismatch": {first: t.get("mismatch", t["n_differ"] / t["n"]),
@@ -1378,6 +1743,10 @@ def run(tables: dict) -> int:
                            "2k": {key: k2[key] for key in extra}}
         if kname in GIF_KERNELS:
             row["launches_by_path"] = {p: c.get(kname, 0) for p, c in path_launches.items()}
+        row["launches_calibrated"] = {p: c.get(kname, 0) for p, c in cal["launches"].items()}
+        row["at_calibrated"] = {g: {key: cal[g]["kernels"][kname][key]
+                                    for key in timed + ("shape",)}
+                                for g in CALIB_CASES if kname in cal[g]["kernels"]}
         rows.append(row)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1386,7 +1755,7 @@ def run(tables: dict) -> int:
         "fused_parity": fused_report, "bp_nonocc": bp, "path_launches": path_launches,
         "e2e": e2e, "medians_2k": med2k, "full_vs_maps_2k": full_vs_maps,
         "sgbm_quality": sgbm_q, "sgbm_per_frame": sper_frame, "sgbm_medians_2k": smed2k,
-        "peak_gib": peak, "variants": variants,
+        "peak_gib": peak, "variants": variants, "calibrated": cal,
         "build_logs": _build.BUILD_LOGS, "build_seconds": build_secs,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))

@@ -31,6 +31,22 @@ def window_sum(x: torch.Tensor, k: int, dim: int) -> torch.Tensor:
     return s
 
 
+def window_sum_1d(x: torch.Tensor, k: int, axis: int, engine: str = "window") -> torch.Tensor:
+    """Length-k sliding-window sum along `axis` (valid mode): output length
+    x.shape[axis] - k + 1. engine='window' sums the k terms tap by tap;
+    'scan' differences a running sum (the JAX op's integral-image engine:
+    exact for integers, rounded otherwise)."""
+    if k == 1:
+        return x
+    if engine == "scan":
+        c = torch.cumsum(x, dim=axis, dtype=x.dtype)
+        n = x.shape[axis] - k + 1
+        hi = c.narrow(axis, k - 1, n)
+        lo = torch.cat([torch.zeros_like(c.narrow(axis, 0, 1)), c.narrow(axis, 0, n - 1)], axis)
+        return hi - lo
+    return window_sum(x, k, axis)
+
+
 def box_sum(x: torch.Tensor, k: int) -> torch.Tensor:
     """k x k windowed sum over the last two axes, reflect-101 borders,
     output shape == input shape. For even k the window spans

@@ -5,9 +5,12 @@ semantics as specified by tests/oracle_sgbm.py).
 Every stage is integer arithmetic, so each is bitwise equal to the JAX op:
 
   sobel_xclip            prefilter (no kernel; the JAX op is XLA)
+  clipped_xderiv         the simpler prefilter variant (not on the pipeline)
+  block_cost             k x k window sum of an (H, W, D) pixel cost
   bt_block_cost          BT pixel cost + k x k window sum   (plain K6)
   aggregate              SGM directional DP, 3/5/8 dirs     (plain K7)
   select_disparity_hdw   WTA, uniqueness, sub-pixel, LR     (plain K8)
+  select_disparity       the same on (H, W, D) costs
   filter_speckles        connected components by min-label propagation;
                          its segmented min sweeps are K9 (kernels/speckle.py)
 
@@ -40,6 +43,16 @@ def _shifted(a: torch.Tensor, dim: int, off: int, fill) -> torch.Tensor:
         out.narrow(dim, max(-off, 0), n - abs(off)).copy_(a.narrow(dim, max(off, 0),
                                                                    n - abs(off)))
     return out
+
+
+def clipped_xderiv(img_u8: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per-channel horizontal central difference with replicated border
+    columns, clipped to [-cap, cap] and shifted to [0, 2*cap] (a simpler
+    prefilter variant; the pipeline's is `sobel_xclip`). (H, W, C) uint8 ->
+    (H, W, C) int32."""
+    x = img_u8.to(torch.int32)
+    d = _clamped(x, 1, 1) - _clamped(x, 1, -1)
+    return d.clamp(-cap, cap) + cap
 
 
 def sobel_xclip(img_u8: torch.Tensor, cap: int) -> torch.Tensor:
@@ -75,6 +88,15 @@ def _window_sum(p: torch.Tensor, k: int) -> torch.Tensor:
             acc = acc + pp.narrow(dim, i, n)
         p = acc
     return p
+
+
+def block_cost(pixel_cost: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Sum the (H, W, D) per-pixel cost over a block_size x block_size
+    window with replicated borders; the dtype is kept (int32 in, int32
+    out)."""
+    if block_size == 1:
+        return pixel_cost
+    return _window_sum(pixel_cost.permute(2, 0, 1), block_size).permute(1, 2, 0).contiguous()
 
 
 def cost_dtype(cost_bound: int | None) -> torch.dtype:
@@ -260,6 +282,19 @@ def select_disparity_hdw(
         d2cost = torch.where(take, cd, d2cost)
         disp2 = torch.where(take, d + minD, disp2)
     return _lr_dual_check(disp16, disp2, inv_val, disp12_max_diff, minD).to(torch.int16)
+
+
+def select_disparity(
+    S: torch.Tensor,               # (H, W, D) int32 aggregated cost
+    uniqueness_ratio: int,
+    disp12_max_diff: int,
+    min_disparity: int = 0,
+) -> torch.Tensor:
+    """`select_disparity_hdw` on (H, W, D) costs (the JAX package's
+    `select_disparity`, which follows tests/oracle_sgbm.py at every
+    min_disparity as the port does). Returns (H, W) int16 disparity x 16."""
+    return select_disparity_hdw(S.permute(0, 2, 1), uniqueness_ratio, disp12_max_diff,
+                                min_disparity)
 
 
 def speckle_graph(disp16: torch.Tensor, max_diff: int, invalid_value: int):

@@ -750,3 +750,65 @@ def test_dispest_stages_on_card_match_cpu(dev, tmp_path):
     got = card.compute(left, right)
     ref = stereo_gif_forward(left, right, cfg)
     assert all((a != b).float().mean() <= 2e-3 for a, b in zip(got, ref))
+
+
+# ---- rectification and depth: the card bitwise the CPU ----------------------
+
+def _calibration():
+    from primestereomatch_torch.calib import load_stereo_calibration
+    from primestereomatch_torch.utils.datasets import data_root
+
+    root = data_root()
+    return load_stereo_calibration(str(root / "intrinsics.yml"), str(root / "extrinsics.yml"))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_remap_on_card_matches_cpu(dev, dtype):
+    """Random maps over and beyond a 50x70 image (out-of-image taps, integer
+    and half-pixel coordinates), (H, W, 3) and (H, W) images."""
+    from primestereomatch_torch.ops import remap_bilinear
+
+    rng = np.random.default_rng(11)
+    img = (rng.integers(0, 256, (50, 70, 3)) if dtype == np.uint8
+           else rng.random((50, 70, 3))).astype(dtype)
+    xy = rng.uniform(-3, 73, (40, 90, 2)).astype(np.float32)
+    xy[:5] = np.round(xy[:5] * 2) / 2
+    m = torch.from_numpy(xy)
+    for im in (img, img[..., 1]):
+        t = torch.from_numpy(np.ascontiguousarray(im))
+        got = remap_bilinear(t.to(dev), m.to(dev))
+        assert got.dtype == t.dtype and torch.equal(got.cpu(), remap_bilinear(t, m))
+
+
+@pytest.mark.parametrize("size,calib_size,crop", [
+    ((1280, 720), None, (526, 1016)), ((672, 376), (1280, 720), (274, 530)),
+], ids=["hd720", "zed_vga"])
+def test_rectifier_and_depth_on_card_match_cpu(dev, size, calib_size, crop):
+    """The Rectifier on the card (maps uploaded once, uint8 numpy frames in)
+    equals the CPU one bit for bit at HD720 and ZED-VGA, with the crops of
+    the shipped calibration; disparity_to_depth and reproject_disparity on
+    the card equal the CPU's on the same disparities (zero, negative and
+    beyond max_depth included)."""
+    from primestereomatch_torch.calib import Rectifier
+    from primestereomatch_torch.ops import disparity_to_depth, reproject_disparity
+
+    calib = _calibration()
+    card = Rectifier(calib, size, calib_size=calib_size)
+    cpu = Rectifier(calib, size, calib_size=calib_size, device="cpu")
+    assert card.map_l.device.type == "cuda" and card.crop == cpu.crop
+    assert torch.equal(card.map_l.cpu(), cpu.map_l) and torch.equal(card.map_r.cpu(), cpu.map_r)
+    rng = np.random.default_rng(12)
+    w, h = size
+    raw = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(2)]
+    for img in (raw, [(a.astype(np.float32) * np.float32(1 / 255.0)) for a in raw]):
+        got, want = card(*img), cpu(*img)
+        for g, c in zip(got, want):
+            assert g.device.type == "cuda" and tuple(g.shape) == (*crop, 3)
+            assert torch.equal(g.cpu(), c)
+    disp = torch.as_tensor(rng.uniform(-4, 80, crop).astype(np.float32))
+    disp[:3] = 0
+    Q = card.rect.Q
+    assert torch.equal(disparity_to_depth(disp.to(dev), Q).cpu(), disparity_to_depth(disp, Q))
+    for kw in ({}, {"max_depth": 100.0, "invalid_value": -1.0}):
+        assert torch.equal(reproject_disparity(disp.to(dev), Q, **kw).cpu(),
+                           reproject_disparity(disp, Q, **kw))

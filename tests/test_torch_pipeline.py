@@ -136,15 +136,15 @@ def test_module_matches_function_and_rejects_bad_input(crop):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port, and the imports of chip_smoke.py,
-    tune_wmf.py, tune_gif_tail.py and tune_select.py, load in a fresh
+    """Every module of the port (43 with calib/), and the imports of
+    chip_smoke.py and of every tune_*.py script, load in a fresh
     interpreter without any jax or primestereomatch_tpu module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import primestereomatch_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, tune_gif_tail, tune_select, tune_wmf\n"
+        "import chip_smoke, tune_bt_cost, tune_gif_tail, tune_select, tune_speckle, tune_wmf\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'primestereomatch_tpu'))\n"
         "assert not bad, bad\n"
@@ -154,7 +154,7 @@ def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 43
 
 
 @pytest.mark.slow
