@@ -95,7 +95,29 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      plain version at these shapes with the bounds of phase 3; ms by stage
      (rectify, disparity, depth; CUDA events and the host clock), a
      profiler pass per path and peak device memory;
-  8. one JSON line listing the kernels, then the final status JSON line.
+  8. app: the calibrated HD720 video stream through the app layer. 16
+     side-by-side raw frames (2560x720, both eyes in one image, the ZED
+     layout) of the calibrated scene, one scene seed a frame, written as
+     PNGs and decoded by the native runtime where it is built (else the
+     Python reader; the live path is printed). Then, each path with every
+     launch count set to 0 just before it and its kernels asserted: the
+     CLI (`-a STEREO_GIF --frames 16 --pipeline video --source <dir>
+     --calib-dir data`, 16 report lines; K4, K2, K3), StereoMatchApp.stream
+     and 16 compute() calls, every frame of both bitwise equal to each other
+     and to stereo_gif_forward of the Rectifier's output (disparities and
+     crops), each region of the field within 1 of its level; SGBM video
+     through compute() (K6-K9), bitwise the direct pipeline's canonical
+     display; Teddy and Cones in image mode (GIF %BP(nonocc) within 0.3 of
+     the reference binary's, SGBM the canonical display of the outputs
+     SGBM_SHA256 pins) and a mosaic through --out read back; the 'm' key
+     moving the GIF engine to the CPU (no launch, Teddy within 0.3) and
+     back (K1, K2, K3); one --timed HD720 frame. Then ms a frame of stream
+     and of compute (host clock, 16-frame passes in turns, from the PNG
+     files and from the decoded frames in memory), the decode, the upload
+     and the fetch (pageable and pinned), a profiler pass over each, peak
+     device memory, and ms a frame and a profiler pass of the image-mode
+     frames;
+  9. one JSON line listing the kernels, then the final status JSON line.
 
 Needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and the package
 beside this script; it exits non-zero without them. A longer report goes
@@ -152,7 +174,7 @@ from primestereomatch_torch.ops.guided_filter import guide_stats
 from primestereomatch_torch.ops.jointwmf import joint_wmf
 from primestereomatch_torch.ops.remap import remap_bilinear
 from primestereomatch_torch.utils import bad_pixel_metrics, load_dataset
-from primestereomatch_torch.utils.png import read_png
+from primestereomatch_torch.utils.png import read_png, write_png
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN_NONOCC = {"Teddy": 17.229, "Cones": 9.072}   # reference binary, +-0.3
@@ -1146,13 +1168,11 @@ def _bilinear(img: np.ndarray, xy: np.ndarray) -> np.ndarray:
             + (img[yi + 1, xi] * (1 - fx) + img[yi + 1, xi + 1] * fx) * fy)
 
 
-def raw_frames(calib: dict, rect, img_size, calib_size, scene) -> list:
-    """The raw camera frames (uint8 BGR) that see `scene`, a pair in the
-    rectified frame of `rect` (the Rectifier's StereoRectification): each
-    raw pixel of an eye takes the scene's bilinear sample at its rectified
-    coordinates (undistort_points with the eye's R and P and its default
-    iterations). The camera matrices are rescaled to img_size as the
-    Rectifier rescales them."""
+def raw_coords(calib: dict, rect, img_size, calib_size) -> list:
+    """Each eye's raw pixels' coordinates in the rectified frame of `rect`
+    (the Rectifier's StereoRectification): undistort_points with the eye's
+    R and P and its default iterations. The camera matrices are rescaled
+    to img_size as the Rectifier rescales them."""
     w, h = img_size
     M = [np.asarray(calib[k], np.float64) for k in ("M1", "M2")]
     if calib_size is not None and tuple(calib_size) != tuple(img_size):
@@ -1160,12 +1180,19 @@ def raw_frames(calib: dict, rect, img_size, calib_size, scene) -> list:
         M = [S @ m for m in M]
     gx, gy = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
     uv = np.stack([gx, gy], axis=-1)
-    frames = []
-    for m, dist, R, P, view in zip(M, (calib["D1"], calib["D2"]), (rect.R1, rect.R2),
-                                   (rect.P1, rect.P2), scene):
-        xy = undistort_points(uv, m, dist, R=R, P=P)
-        frames.append(np.clip(np.rint(_bilinear(view, xy) * 255), 0, 255).astype(np.uint8))
-    return frames
+    return [undistort_points(uv, m, dist, R=R, P=P)
+            for m, dist, R, P in zip(M, (calib["D1"], calib["D2"]), (rect.R1, rect.R2),
+                                     (rect.P1, rect.P2))]
+
+
+def raw_frames(calib: dict, rect, img_size, calib_size, scene, coords=None) -> list:
+    """The raw camera frames (uint8 BGR) that see `scene`, a pair in the
+    rectified frame of `rect`: each raw pixel of an eye takes the scene's
+    bilinear sample at its rectified coordinates (`raw_coords`, or
+    `coords` computed by it once for many scenes)."""
+    coords = coords or raw_coords(calib, rect, img_size, calib_size)
+    return [np.clip(np.rint(_bilinear(view, xy) * 255), 0, 255).astype(np.uint8)
+            for view, xy in zip(scene, coords)]
 
 
 def field_regions(rect, levels, D: int, m: int = 16) -> dict:
@@ -1446,6 +1473,312 @@ def calibrated(dev, smi) -> dict:
     return out
 
 
+# ---- the app phase ------------------------------------------------------------
+# the HD720 video stream through the app layer: APP_FRAMES side-by-side raw
+# frames of the calibrated scene, one scene seed a frame
+APP_FRAMES = 16
+APP_SEED = 5
+
+
+def app_frames(frame_dir: pathlib.Path, calib: dict, rec, size, calib_size, levels) -> list:
+    """Write APP_FRAMES side-by-side raw frames (both eyes in one image, the
+    ZED layout that SideBySideFileSource splits) of the calibrated scene,
+    seeds APP_SEED.., as PNGs (utils/png.py::write_png) into `frame_dir`, on
+    8 host threads. Returns the paths and the field's rectangle."""
+    coords = raw_coords(calib, rec.rect, size, calib_size)
+
+    def make(i):
+        scene_l, scene_r, rect = calibrated_scene(rec.crop, size, levels, APP_SEED + i)
+        raw = raw_frames(calib, rec.rect, size, calib_size, (scene_l, scene_r), coords)
+        path = frame_dir / f"frame_{i:04d}.png"
+        write_png(str(path), np.concatenate(raw, axis=1))
+        return path, rect
+
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        made = list(ex.map(make, range(APP_FRAMES)))
+    return [p for p, _ in made], made[0][1]
+
+
+def transfer_ms(dev, pair: np.ndarray, outs: list) -> dict:
+    """ms a frame of the stream's copies at these shapes: the raw pair's
+    upload and the fetch of the disparities and crops, from pageable memory
+    (the host clock: such a copy blocks the host) and through pinned
+    buffers with non_blocking=True (CUDA events: the copies' device time),
+    and the host's copies into and out of the pinned slots that stream()
+    makes (the host clock)."""
+    pinned = torch.from_numpy(pair).pin_memory()
+    hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
+    return {
+        "upload_pageable_host": frame_ms(lambda: torch.from_numpy(pair).to(dev), ITERS),
+        "upload_pinned_device": cuda_ms(lambda: pinned.to(dev, non_blocking=True)),
+        "stage_into_pinned_host": frame_ms(lambda: pinned.copy_(torch.from_numpy(pair)), ITERS),
+        "fetch_pageable_host": frame_ms(lambda: [t.cpu() for t in outs], ITERS),
+        "fetch_pinned_device": cuda_ms(
+            lambda: [h.copy_(t, non_blocking=True) for h, t in zip(hosts, outs)]),
+        "copy_out_of_pinned_host": frame_ms(lambda: [h.clone().numpy() for h in hosts], ITERS),
+    }
+
+
+def app_phase(dev, smi) -> dict:
+    """The app phase: the calibrated ZED HD720 video stream through the app
+    layer. 16 side-by-side raw frames (2560x720) of the calibrated scene are
+    decoded (the native runtime where it is built, else utils/png.py),
+    rectified and matched through the CLI (`--pipeline`), through
+    StereoMatchApp.stream() and compute(), each frame bitwise equal across
+    the three and to stereo_gif_forward of the Rectifier's output, the
+    field's regions within 1; SGBM video through compute(); Teddy and Cones
+    in image mode (GIF %BP(nonocc), the SGBM outputs that SGBM_SHA256 pins,
+    a mosaic through --out); the 'm' key's card <-> CPU round trip; one
+    timed frame. Every path with its launch counts set to 0 just before it
+    and its kernels asserted. Then stream and compute ms a frame side by
+    side, decode, upload and fetch ms, a profiler pass and peak memory."""
+    import contextlib
+    import io
+    import shutil
+
+    from primestereomatch_torch import cli, hci, native
+    from primestereomatch_torch.app import AppConfig, StereoMatchApp
+    from primestereomatch_torch.hci import KeyLoop
+    from primestereomatch_torch.utils.video import SideBySideFileSource, read_image
+
+    calib = load_stereo_calibration(str(ROOT / "data" / "intrinsics.yml"),
+                                    str(ROOT / "data" / "extrinsics.yml"))
+    size, calib_size, crop_hw, levels, routes = CALIB_CASES["hd720"]
+    k_gif, k123 = routes["gif"], ("lowmaps", "wta", "wmf")
+    rec = Rectifier(calib, size, calib_size=calib_size, device=dev)
+    cfg, scfg = psm.GIFConfig(), psm.SGBMConfig()
+    out: dict = {"card": smi, "launches": {}, "native_available": native.native_available()}
+    frame_dir = ROOT / "chiprun_out" / "app_hd720_frames"     # ~80 MB: removed at the end
+    shutil.rmtree(frame_dir, ignore_errors=True)
+    frame_dir.mkdir(parents=True)
+    saved_reader = hci._stdin_reader
+    # the key loop of every CLI run reads no keys: the run does not depend on stdin
+    hci._stdin_reader = lambda: ""
+
+    def drive(label, expect, run):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        got = run()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        log(f"app main path {label}: launches {counts}")
+        if set(counts) != set(expect):
+            raise AssertionError(f"app {label} launched {counts}, expected exactly {expect}")
+        out["launches"][label] = counts
+        return got
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("frame ")]
+        return rc, lines
+
+    def video_app(alg="STEREO_GIF", **kw):
+        return StereoMatchApp(AppConfig(alg=alg, media_mode="video",
+                                        video_source=str(frame_dir),
+                                        calib_dir=str(ROOT / "data"), mask_mode="none", **kw))
+
+    try:
+        t0 = time.perf_counter()
+        paths, rect = app_frames(frame_dir, calib, rec, size, calib_size, levels)
+        log(f"app: wrote {len(paths)} side-by-side HD720 raw frames (2560x720) in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # the decode path: the prefetching source over every frame, and one
+        # decode after another
+        t0 = time.perf_counter()
+        host = list(SideBySideFileSource(str(frame_dir)))
+        prefetch_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+        t0 = time.perf_counter()
+        for p in paths:
+            read_image(str(p))
+        seq_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+        t0 = time.perf_counter()
+        read_png(str(paths[0]), 3)
+        py_ms = (time.perf_counter() - t0) * 1e3
+        path_name = ("native (libpng, prefetching threads)" if out["native_available"]
+                     else "Python (utils/png.py)")
+        out["decode_ms"] = {"source": prefetch_ms, "sequential": seq_ms, "python_reader": py_ms}
+        log(f"app: decode path {path_name}: {prefetch_ms:.2f} ms a frame through "
+            f"SideBySideFileSource, {seq_ms:.2f} one after another, the Python reader "
+            f"{py_ms:.2f} ms a frame")
+        if len(host) != APP_FRAMES or host[0][0].shape != (size[1], size[0], 3):
+            raise AssertionError(f"decoded {len(host)} frames of {host[0][0].shape}")
+
+        # the video stream through the CLI
+        rc, lines = drive("cli_video_stream", k_gif, lambda: run_cli(
+            ["-a", "STEREO_GIF", "--frames", str(APP_FRAMES), "--pipeline", "video",
+             "--source", str(frame_dir), "--calib-dir", str(ROOT / "data")]))
+        log(f"app: python -m primestereomatch_torch ... video --pipeline: rc {rc}, "
+            f"{len(lines)} report lines; first '{lines[0] if lines else ''}'")
+        if rc != 0 or len(lines) != APP_FRAMES:
+            raise AssertionError(f"the CLI returned {rc} with {len(lines)} report lines")
+
+        # stream() and compute() against each other and the direct pipeline
+        sa, ca = video_app(), video_app()
+        streamed = drive("stream", k_gif, lambda: list(sa.stream(APP_FRAMES)))
+        computed = drive("compute", k_gif, lambda: [ca.compute() for _ in range(APP_FRAMES)])
+        regions = field_regions(rect, levels, cfg.max_dis)
+        fields = []
+        for i, (s, c) in enumerate(zip(streamed, computed, strict=True)):
+            sbs = torch.from_numpy(read_image(str(paths[i]))).to(dev)
+            l8, r8 = rec(sbs[:, :size[0]].contiguous(), sbs[:, size[0]:].contiguous())
+            ld, rd = psm.stereo_gif_forward(l8.to(torch.float32) * U8_TO_F32,
+                                            r8.to(torch.float32) * U8_TO_F32, cfg, device=dev)
+            want = (ld.cpu().numpy(), rd.cpu().numpy(), l8.cpu().numpy(), r8.cpu().numpy())
+            for key, w in zip(("l_disp", "r_disp", "left_bgr", "right_bgr"), want):
+                if not (np.array_equal(getattr(s, key), w)
+                        and np.array_equal(getattr(c, key), w)):
+                    raise AssertionError(f"app frame {i} {key}: stream, compute and the direct "
+                                         f"pipeline differ")
+            disp = s.l_disp.astype(np.float64)
+            disp[disp <= 0] = np.nan
+            z = disparity_to_depth(torch.from_numpy(s.l_disp), rec.rect.Q).numpy()
+            fields.append(check_field(f"app frame {i}", disp, z, regions, rec.rect.Q))
+        out["field"] = fields
+        log(f"app: {APP_FRAMES} HD720 frames, stream == compute == Rectifier -> "
+            f"stereo_gif_forward bit for bit (disparities and crops {crop_hw}); regions of "
+            f"every frame within 1 of {levels}: frame 0 {fields[0]}")
+
+        # SGBM video through compute()
+        sg = video_app("STEREO_SGBM")
+        sres = drive("sgbm_compute", SGBM_KERNELS, lambda: [sg.compute() for _ in range(4)])
+        for i, r in enumerate(sres):
+            sbs = torch.from_numpy(read_image(str(paths[i]))).to(dev)
+            l8, r8 = rec(sbs[:, :size[0]].contiguous(), sbs[:, size[0]:].contiguous())
+            want = psm.sgbm_display_u8(psm.stereo_sgbm_forward(l8, r8, scfg, device=dev), 1,
+                                       cfg.max_dis).cpu().numpy()
+            if not np.array_equal(r.l_disp, want):
+                raise AssertionError(f"app SGBM frame {i} differs from the direct pipeline")
+        log("app: SGBM video, 4 HD720 frames through compute(): l_disp bitwise "
+            "sgbm_display_u8(stereo_sgbm_forward(crop), 1, 64)")
+
+        # image mode: Teddy and Cones
+        out["image"] = {}
+        for name in GOLDEN_NONOCC:
+            ga = StereoMatchApp(AppConfig(alg="STEREO_GIF", media_mode="image", dataset=name))
+            bp = drive(f"image_{name}_gif", k123, ga.compute).metrics.percent_bad_pixels
+            sga = StereoMatchApp(AppConfig(alg="STEREO_SGBM", media_mode="image", dataset=name))
+            got = drive(f"image_{name}_sgbm", SGBM_KERNELS, sga.compute).l_disp
+            s = ga._sample
+            d16 = psm.stereo_sgbm_forward(s.left_bgr, s.right_bgr, scfg, device=dev)
+            digest = hashlib.sha256(d16.cpu().numpy().tobytes()).hexdigest()
+            same = np.array_equal(got, psm.sgbm_display_u8(d16, 1, 64).cpu().numpy())
+            out["image"][name] = {"gif_bp_nonocc": bp, "sgbm_equal": same, "e2e": {
+                "gif": end_to_end(f"app image {name} GIF", ga.compute, GIF_TAGS,
+                                  "StereoMatchApp.compute: upload, K1 -> K2 -> K3, fetch, %BP",
+                                  ITERS),
+                "sgbm": end_to_end(f"app image {name} SGBM", sga.compute, SGBM_TAGS,
+                                   "StereoMatchApp.compute: upload, K6-K9, display, fetch, %BP",
+                                   ITERS)}}
+            log(f"app image {name}: GIF %BP(nonocc) {bp:.3f} (reference {GOLDEN_NONOCC[name]}, "
+                f"+-0.3); SGBM l_disp equals the canonical display of the output pinned by "
+                f"SGBM_SHA256: {same and digest == SGBM_SHA256[name]}")
+            if abs(bp - GOLDEN_NONOCC[name]) > 0.3 or not same or digest != SGBM_SHA256[name]:
+                raise AssertionError(f"app image {name}: {out['image'][name]}")
+        mosaic_dir = ROOT / "chiprun_out" / "app_mosaic"
+        rc, lines = run_cli(["-a", "STEREO_GIF", "--out", str(mosaic_dir), "image",
+                             "--dataset", "Teddy"])
+        mosaic = read_png(str(mosaic_dir / "frame_0000.png"), 3)
+        teddy = load_dataset("Teddy")
+        log(f"app: --out wrote {mosaic_dir.name}/frame_0000.png {mosaic.shape}: '{lines[0]}'")
+        if rc or mosaic.shape != (750, 1350, 3) or not np.array_equal(mosaic[:375, :450],
+                                                                      teddy.left_bgr):
+            raise AssertionError(f"the --out mosaic is {mosaic.shape}, rc {rc}")
+
+        # the 'm' key: the GIF engine to the CPU (no kernel) and back
+        ka = StereoMatchApp(AppConfig(alg="STEREO_GIF", media_mode="image", dataset="Teddy"))
+        msgs, feed = [], ["m"]
+        keys = KeyLoop(ka, reader=lambda: feed.pop(0) if feed else "", echo=msgs.append)
+        keys.pump()
+        t0 = time.perf_counter()
+        bp_cpu = drive("keys_m_cpu", (), ka.compute).metrics.percent_bad_pixels
+        cpu_s = time.perf_counter() - t0
+        feed.append("m")
+        keys.pump()
+        bp_card = drive("keys_m_card", k123, ka.compute).metrics.percent_bad_pixels
+        out["keys"] = {"messages": msgs, "bp_cpu": bp_cpu, "bp_card": bp_card,
+                       "cpu_frame_s": cpu_s, "cpu_threads": torch.get_num_threads()}
+        log(f"app keys: {msgs}; Teddy on the CPU %BP(nonocc) {bp_cpu:.3f} in {cpu_s:.2f} s "
+            f"({torch.get_num_threads()} threads), back on the card {bp_card:.3f}")
+        if (ka.gif_device.type != "cuda" or abs(bp_cpu - GOLDEN_NONOCC["Teddy"]) > 0.3
+                or abs(bp_card - GOLDEN_NONOCC["Teddy"]) > 0.3):
+            raise AssertionError(f"the 'm' round trip: {out['keys']}")
+
+        # one timed HD720 frame: DispEst's stages (plain torch; K3 in PP)
+        ta = video_app(timed=True)
+        timed = drive("timed", ("wmf",), ta.compute).times_ms
+        out["timed_ms"] = timed
+        log(f"app: one --timed HD720 frame, ms by stage (CUDA events to a synchronisation) "
+            f"{ {k: round(v, 3) for k, v in timed.items()} }")
+
+        # ms a frame of stream and of compute, side by side in turns, each pass
+        # from a fresh source: the PNG files (decode threads started inside the
+        # pass) and the decoded frames in memory (a camera's raw frames)
+        sources = {"files": lambda: SideBySideFileSource(str(frame_dir)),
+                   "memory": lambda: iter(host)}
+
+        def app_pass(kind, src):
+            def run():
+                a = sa if kind == "stream" else ca
+                a._source = sources[src]()
+                if kind == "stream":
+                    return list(a.stream(APP_FRAMES))
+                return [a.compute() for _ in range(APP_FRAMES)]
+            return run
+
+        # host-bound passes spread by ~20% between passes: 4 rounds from memory
+        rounds = {"files": 1, "memory": 4}
+        passes = {f"{k}_{src}": [] for src in sources for k in ("stream", "compute")}
+        for src in sources:
+            for kind in ("stream", "compute", "compute", "stream") * rounds[src]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                app_pass(kind, src)()
+                passes[f"{kind}_{src}"].append((time.perf_counter() - t0) * 1e3 / APP_FRAMES)
+        ms = {k: float(np.mean(v)) for k, v in passes.items()}
+        pair = np.stack([host[0][0], host[0][1]])
+        res_t = [torch.from_numpy(x).to(dev) for x in (computed[0].l_disp, computed[0].r_disp,
+                                                         np.stack([computed[0].left_bgr,
+                                                                   computed[0].right_bgr]))]
+        copies = transfer_ms(dev, pair, res_t)
+        prof = {key: profile_frames(app_pass(*key.split("_")), GIF_TAGS, frames=2)
+                for key in ("stream_memory", "compute_memory", "stream_files")}
+        for p in prof.values():     # a call is APP_FRAMES frames
+            for key in ("wall_ms", "device_ms", "device_ops_per_frame"):
+                p[key] /= APP_FRAMES
+            p["device_ms_by_kernel"] = {k: v / APP_FRAMES
+                                        for k, v in p["device_ms_by_kernel"].items()}
+        peak = {k: peak_gib(app_pass(k, "memory")) for k in ("stream", "compute")}
+        out.update(ms_per_frame=ms, passes=passes, copies_ms=copies, profile=prof,
+                   peak_gib=peak)
+        for src in sources:
+            st, co = passes[f"stream_{src}"], passes[f"compute_{src}"]
+            log(f"app HD720 ms a frame from {src} (host clock, 16-frame passes in turns stream, "
+                f"compute, compute, stream): stream mean {np.mean(st):.3f} median "
+                f"{np.median(st):.3f} {[round(x, 3) for x in st]}, compute mean {np.mean(co):.3f} "
+                f"median {np.median(co):.3f} {[round(x, 3) for x in co]} ({smi})")
+        log(f"app HD720 copies ms a frame: upload of the raw pair (2x720x1280x3 uint8) pageable "
+            f"{copies['upload_pageable_host']:.3f} (host), pinned {copies['upload_pinned_device']:.3f}"
+            f" (device); fetch of the disparities and crops pageable "
+            f"{copies['fetch_pageable_host']:.3f} (host), pinned "
+            f"{copies['fetch_pinned_device']:.3f} (device); the host's copies into the pinned "
+            f"slot {copies['stage_into_pinned_host']:.3f} and out of the result slots "
+            f"{copies['copy_out_of_pinned_host']:.3f}")
+        for k, p in prof.items():
+            by = ", ".join(f"{t} {v:.3f}" for t, v in p["device_ms_by_kernel"].items())
+            log(f"app profile {k}: wall {p['wall_ms']:.3f} ms a frame under the profiler, device "
+                f"{p['device_ms']:.3f} ms ({by}), idle share {p['idle_share']:.1%}, "
+                f"{p['device_ops_per_frame']:.0f} device ops a frame")
+        log(f"app peak device memory of a 16-frame pass from memory: stream {peak['stream']:.3f} "
+            f"GiB, compute {peak['compute']:.3f} GiB")
+    finally:
+        hci._stdin_reader = saved_reader
+        shutil.rmtree(frame_dir, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card",
@@ -1694,6 +2027,12 @@ def run(tables: dict) -> int:
                     for k in GIF_KERNELS + SGBM_KERNELS}
     log(f"calibrated main paths, launches summed: {cal_launches}")
 
+    # ---- the app phase: counts at 0 just before each path ------------------
+    app = app_phase(dev, smi)
+    app_launches = {k: sum(c.get(k, 0) for c in app["launches"].values())
+                    for k in GIF_KERNELS + SGBM_KERNELS}
+    log(f"app main paths, launches summed: {app_launches}")
+
     rows = []
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     for kname in GIF_KERNELS + SGBM_KERNELS:
@@ -1708,7 +2047,7 @@ def run(tables: dict) -> int:
             "source": f"primestereomatch_torch/csrc/{kname}.cu",
             "replaces": TPU_KERNEL[kname],
             "launches": (launches[kname] if kname in GIF_KERNELS else slaunches[kname])
-            + cal_launches[kname],
+            + cal_launches[kname] + app_launches[kname],
             **{key: t[key] for key in timed}, "library_ms": None, "at": at,
             "at_2k": {key: k2[key] for key in timed},
             "mismatch": {first: t.get("mismatch", t["n_differ"] / t["n"]),
@@ -1744,6 +2083,7 @@ def run(tables: dict) -> int:
         if kname in GIF_KERNELS:
             row["launches_by_path"] = {p: c.get(kname, 0) for p, c in path_launches.items()}
         row["launches_calibrated"] = {p: c.get(kname, 0) for p, c in cal["launches"].items()}
+        row["launches_app"] = {p: c.get(kname, 0) for p, c in app["launches"].items()}
         row["at_calibrated"] = {g: {key: cal[g]["kernels"][kname][key]
                                     for key in timed + ("shape",)}
                                 for g in CALIB_CASES if kname in cal[g]["kernels"]}
@@ -1755,7 +2095,7 @@ def run(tables: dict) -> int:
         "fused_parity": fused_report, "bp_nonocc": bp, "path_launches": path_launches,
         "e2e": e2e, "medians_2k": med2k, "full_vs_maps_2k": full_vs_maps,
         "sgbm_quality": sgbm_q, "sgbm_per_frame": sper_frame, "sgbm_medians_2k": smed2k,
-        "peak_gib": peak, "variants": variants, "calibrated": cal,
+        "peak_gib": peak, "variants": variants, "calibrated": cal, "app": app,
         "build_logs": _build.BUILD_LOGS, "build_seconds": build_secs,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))

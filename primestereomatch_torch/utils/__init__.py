@@ -12,3 +12,20 @@ from primestereomatch_torch.utils.features import (  # noqa: F401
     feature_index_color,
     feature_index_gray,
 )
+from primestereomatch_torch.utils.display import (  # noqa: F401
+    build_mosaic,
+    disp_to_u8,
+    save_png,
+)
+from primestereomatch_torch.utils.profiling import (  # noqa: F401
+    StageTimers,
+    hbm_roofline_fraction,
+    trace,
+)
+from primestereomatch_torch.utils.video import (  # noqa: F401
+    FrameSource,
+    PairFileSource,
+    SideBySideFileSource,
+    SyntheticZEDSource,
+    open_source,
+)

@@ -40,6 +40,8 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     ftype = rows[:, 0].astype(np.int64)
     if ftype.max(initial=0) > 4:
         raise ValueError(f"bad PNG filter type {ftype.max()}")
+    if not ftype.any():    # no row filtered (what write_png writes): the bytes as they are
+        return np.ascontiguousarray(rows[:, 1:])
     n = stride // bpp
     filt = rows[:, 1:].reshape(h, n, bpp).astype(np.int32)
     out = np.zeros((h + 1, n + 1, bpp), np.int32)  # zero row/column = outside

@@ -812,3 +812,43 @@ def test_rectifier_and_depth_on_card_match_cpu(dev, size, calib_size, crop):
     for kw in ({}, {"max_depth": 100.0, "invalid_value": -1.0}):
         assert torch.equal(reproject_disparity(disp.to(dev), Q, **kw).cpu(),
                            reproject_disparity(disp, Q, **kw))
+
+
+@pytest.mark.parametrize("calib_dir", [None, "data"], ids=["raw", "calibrated"])
+def test_app_stream_equals_compute_on_card(dev, calib_dir):
+    """StereoMatchApp on the card (AppConfig's default device): every frame
+    of stream() equals compute()'s bit for bit, and a yielded frame does not
+    change while later frames reuse the pinned ring's slots. The calibrated
+    stream rectifies 384x216 frames with the shipped calibration
+    (calib_size 1280x720) and returns the crops with the disparities."""
+    import pathlib
+
+    from primestereomatch_torch.app import RING, AppConfig, StereoMatchApp
+    from primestereomatch_torch.utils.video import SyntheticZEDSource
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+
+    def make():
+        a = StereoMatchApp(AppConfig(
+            alg="STEREO_GIF", media_mode="video", max_dis=16, med_sz=7, mask_mode="none",
+            calib_dir=str(root / calib_dir) if calib_dir else None))
+        a._source = SyntheticZEDSource(width=384, height=216, n_frames=3 * RING + 1,
+                                       max_disparity=16, smoothing=0)
+        return a
+
+    streamed, snaps = [], []
+    for res in make().stream(3 * RING + 1):
+        streamed.append(res)
+        snaps.append([x.copy() for x in (res.l_disp, res.r_disp, res.left_bgr, res.right_bgr)])
+    assert len(streamed) == 3 * RING + 1
+    ref = make()
+    assert ref.device.type == "cuda"
+    for res, snap in zip(streamed, snaps):
+        want = ref.compute()
+        got = (res.l_disp, res.r_disp, res.left_bgr, res.right_bgr)
+        for g, s, w in zip(got, snap, (want.l_disp, want.r_disp, want.left_bgr,
+                                       want.right_bgr)):
+            np.testing.assert_array_equal(g, s)
+            np.testing.assert_array_equal(g, w)
+    if calib_dir:
+        assert streamed[0].left_bgr.shape == (156, 304, 3)

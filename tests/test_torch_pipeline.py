@@ -136,7 +136,9 @@ def test_module_matches_function_and_rejects_bad_input(crop):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port (43 with calib/), and the imports of
+    """Every module of the port (51 with calib/ and the app layer: native,
+    utils.display, utils.profiling, utils.video, app, hci, cli and the
+    guarded __main__, which runs nothing on import), and the imports of
     chip_smoke.py and of every tune_*.py script, load in a fresh
     interpreter without any jax or primestereomatch_tpu module."""
     code = (
@@ -154,7 +156,7 @@ def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 43
+    assert int(out.stdout.strip()) >= 51
 
 
 @pytest.mark.slow
