@@ -117,7 +117,32 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      and the fetch (pageable and pinned), a profiler pass over each, peak
      device memory, and ms a frame and a profiler pass of the image-mode
      frames;
-  9. one JSON line listing the kernels, then the final status JSON line.
+  9. sharded (parallel/): the 2K pairs of seeds 0 and 1 (D = 256), rows
+     reflected to 1248 (a multiple of s * y). World 1 under NCCL, mesh
+     (1, 1, 1), in this process: the sharded GIF step (K4, K2, K3) and
+     SGBM step (K6-K9) on the 2 frames, bitwise the direct pipelines. Four
+     ranks sharing the card under gloo (collectives of CUDA tensors staged
+     through host memory, printed so): meshes (1, 2, 2), (1, 4, 1),
+     (1, 1, 4) and (2, 2, 1), with and without JointWMF, launch K1 and K3's
+     participation-weight mode and nothing else, and lie within 2e-3 of the
+     single-device card output (the count printed) with the field
+     recovered; (4, 1, 1) on 4 frames launches K4, K2, K3 and is bitwise.
+     Each mesh with every launch count set to 0 just before it and read
+     just after, on every rank; ms a frame (host clock, synchronised), the
+     halo and merge bytes and host ms a rank, peak device memory a rank.
+     The launcher (`python -m primestereomatch_torch.launch local
+     --processes 4 --check`) at (1, 2, 2) and (2, 2, 1), at 2208 x 1248,
+     D = 256. K1 against its plain version at one rank's extended tile of
+     each tiled mesh, and K4, K2, K3 at the 2-frame batch (4 views); K3's
+     valid mode against its plain version at the tiled meshes' JointWMF
+     tiles (a
+     zero-halo tile of the card's output, a fractional plane, whole windows
+     of zeros; 0 pixels required), its ms beside the valid-less kernel's at
+     the same shape, and the valid-less 2K time against PERF.md's;
+ 10. one JSON line listing the ten TPU kernels' ports (K5 as its own row,
+     `wta_generic`: K2's source's per-pixel kernel, launched by the
+     subsample=1 path) and K3's valid mode as its own row (`wmf_valid`),
+     then the final status JSON line.
 
 Needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and the package
 beside this script; it exits non-zero without them. A longer report goes
@@ -131,6 +156,8 @@ import hashlib
 import json
 import multiprocessing
 import pathlib
+import pickle
+import socket
 import subprocess
 import sys
 import time
@@ -213,10 +240,13 @@ HVGA, WVGA = 376, 672          # its VGA mode
 TPU_KERNEL = {
     "lowmaps": "primestereomatch_tpu/kernels/lowmaps_pallas.py:137",
     # one CUDA kernel for the TPU's polyphase kernel and its generic-ratio one
-    "wta": "primestereomatch_tpu/kernels/wta_pallas.py:298 and :80",
+    "wta": "primestereomatch_tpu/kernels/wta_pallas.py:298",
+    # K5: csrc/wta.cu's per-pixel kernel, which ratios of 2 and below take
+    "wta_generic": "primestereomatch_tpu/kernels/wta_pallas.py:80",
     "cvc_lowmaps": "primestereomatch_tpu/kernels/cvc_lowmaps_pallas.py:64",
     "cvc_wta": "primestereomatch_tpu/kernels/cvc_wta_pallas.py:117 and :251",
     "wmf": "primestereomatch_tpu/kernels/wmf_pallas.py:69",
+    "wmf_valid": "primestereomatch_tpu/kernels/wmf_pallas.py:69 (has_valid=True, :94-110)",
     "bt_cost": "primestereomatch_tpu/kernels/sgbm_pallas.py:383",
     "sgbm_scan": "primestereomatch_tpu/kernels/sgbm_pallas.py:83",
     "select": "primestereomatch_tpu/kernels/select_pallas.py:280",
@@ -1779,6 +1809,496 @@ def app_phase(dev, smi) -> dict:
     return out
 
 
+H_SHARD = 1248    # the 2K frame's rows reflected to a multiple of s * y for y up to 4
+# the sharded phase's meshes of four ranks sharing the card: name -> ((b, y, d), frames)
+SHARD_MESHES = {"1x2x2": ((1, 2, 2), 2), "1x4x1": ((1, 4, 1), 2), "1x1x4": ((1, 1, 4), 2),
+                "2x2x1": ((2, 2, 1), 2), "4x1x1": ((4, 1, 1), 4)}
+SHARD_RANKS = 4
+SHARD_TIMED = 2    # timed steps a mesh, after the counted one
+# the rank whose extended tile K1 is held at, (y index, d index) a tiled
+# mesh: a bottom, an interior, a whole-frame and a top tile
+TILE_RANKS = {"1x2x2": (1, 1), "1x4x1": (1, 0), "1x1x4": (0, 2), "2x2x1": (0, 0)}
+# K3's participation-weight mode at the extended JointWMF tiles of the tiled
+# meshes (views, rows, columns): 2 frames a rank at y = 2 (the kernels line's
+# shape), y = 4, y = 1 (d = 4), and 1 frame a rank at b = 2, y = 2
+WMF_TILES = {"y2": (4, 624 + 18, W2K), "y4": (4, 312 + 18, W2K), "y1": (4, 1248 + 18, W2K),
+             "b2y2": (2, 624 + 18, W2K)}
+
+
+def bound_wmf_valid(disp: torch.Tensor, out: torch.Tensor, valid: torch.Tensor, radius: int,
+                    n_bins: int):
+    """`bound_wmf` with a participation plane: only neighbours of nonzero
+    weight take work (this run's data), one multiply more a pair, and the
+    plane's 4 bytes a pixel read."""
+    B, H, W = disp.shape
+
+    def cover(n):   # windows that hold each position along one axis
+        i = np.arange(n)
+        return (np.minimum(i + radius, n - 1) - np.maximum(i - radius, 0) + 1).astype(np.float64)
+
+    taking = (valid != 0).double().sum(dim=0).cpu().numpy()   # (H, W), over the views
+    pairs = float(cover(H) @ taking @ cover(W))
+    scan = B * H * W * n_bins + 2 * int(out.to(torch.int64).add(1).sum())
+    return bound(9 * B * H * W, 12 * pairs + scan)
+
+
+def sharded_frames():
+    """The seeded 2K pairs of seeds 0 and 1 (synthetic_2k), their rows
+    reflected from 1242 to H_SHARD (the pad `make_sharded_gif` asks of a
+    tiled mesh). Returns (2, H_SHARD, W, 3) left and right, float32, and
+    the field's rectangle."""
+    pairs = [synthetic_2k(seed) for seed in (0, 1)]
+    pad = ((0, H_SHARD - H2K), (0, 0), (0, 0))
+    left, right = (np.stack([np.pad(p[v], pad, mode="reflect") for p in pairs]) for v in (0, 1))
+    return left, right, pairs[0][2]
+
+
+def _launched() -> dict:
+    return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+
+def sharded_rank(rank: int, port: int, work: str) -> None:
+    """One of SHARD_RANKS ranks sharing the card (gloo; collectives of CUDA
+    tensors staged through host memory): every mesh of SHARD_MESHES on the
+    same global batch (the frames the parent wrote to `work`), tiled meshes
+    with and without JointWMF. Per mesh it writes its block, its launches
+    (counts set to 0 just before the counted step, read just after), the
+    bytes and host time of its halos and merges, its peak device memory and
+    the wall ms of SHARD_TIMED more steps (all ranks between barriers)."""
+    import torch.distributed as dist
+
+    from primestereomatch_torch.parallel import MeshPlan, make_mesh, make_sharded_gif
+    from primestereomatch_torch.parallel import sharded as sh
+    from primestereomatch_torch.parallel.launch import initialize
+
+    backend = initialize(f"localhost:{port}", SHARD_RANKS, rank)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    frames = np.load(pathlib.Path(work) / "frames.npz")
+    cfg = psm.GIFConfig(max_dis=256)
+    out: dict = {"backend": backend}
+    try:
+        for name, (plan, n_frames) in SHARD_MESHES.items():
+            batch = [torch.as_tensor(np.concatenate([frames[v]] * (n_frames // 2)), device=dev)
+                     for v in ("left", "right")]
+            mesh = make_mesh(MeshPlan(*plan))
+            tiled = plan[1] > 1 or plan[2] > 1
+            for pp in ((True, False) if tiled else (True,)):
+                step = make_sharded_gif(mesh, cfg, pp)
+                torch.cuda.synchronize()
+                dist.barrier()
+                torch.cuda.reset_peak_memory_stats()
+                K.reset_launches()
+                sh.reset_comm()
+                lo, ro, (bsl, rows) = step(*batch)
+                torch.cuda.synchronize()
+                res = {"launches": _launched(), "comm": dict(sh.COMM),
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "block": (lo.cpu().numpy(), ro.cpu().numpy()),
+                       "index": (bsl.start, bsl.stop, rows.start, rows.stop)}
+                dist.barrier()
+                t0 = time.perf_counter()
+                for _ in range(SHARD_TIMED):
+                    step(*batch)
+                torch.cuda.synchronize()
+                dist.barrier()
+                res["ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / (SHARD_TIMED * n_frames)
+                out[name + ("" if pp else "_no_pp")] = res
+            del batch
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with open(pathlib.Path(work) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def _free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _assemble(ranks: list, key: str, B: int) -> list:
+    """The global (B, H_SHARD, W) outputs of a mesh from the ranks' blocks;
+    the ranks of one block must agree."""
+    outs = [np.full((B, H_SHARD, W2K), -1, np.int32) for _ in range(2)]
+    for res in ranks:
+        b0, b1, y0, y1 = res[key]["index"]
+        for o, blk in zip(outs, res[key]["block"]):
+            seen = o[b0:b1, y0:y1]
+            if not ((seen == -1) | (seen == blk)).all():
+                raise AssertionError(f"sharded {key}: ranks of one block disagree")
+            o[b0:b1, y0:y1] = blk
+    if not all((o >= 0).all() for o in outs):
+        raise AssertionError(f"sharded {key}: a block no rank returned")
+    return outs
+
+
+def wmf_valid_parity(dev, smi: str, ref_disp: torch.Tensor, guide_u8: torch.Tensor, r: int,
+                     n_bins: int, sig: float) -> dict:
+    """K3's participation-weight mode against its plain version at the
+    tiled meshes' JointWMF tiles (WMF_TILES): a top tile of the card's 2K
+    output with zero halo rows (the participation plane 0 there, as the
+    mesh makes it), a fractional plane on random disparities, and one with
+    whole 64x64 windows of zeros (output 0 there); 0 differing pixels
+    required. Times at each tile: the valid mode and the valid-less kernel
+    on the zero-halo input, the plain version once."""
+    rng = np.random.default_rng(13)
+    rep: dict = {}
+    for tname, (B, He, W) in WMF_TILES.items():
+        # a top tile: r zero rows above, its rows and the r real rows below
+        # (zero rows below too where the tile is the whole frame)
+        pick = torch.arange(B, device=dev) % ref_disp.shape[0]
+        body, g_body = ref_disp[pick, :He - r], guide_u8[pick, :He - r]
+        n_bot = He - r - body.shape[1]
+        top = torch.nn.functional.pad(body, (0, 0, r, n_bot)).contiguous()
+        g_top = torch.nn.functional.pad(g_body, (0, 0, 0, 0, r, n_bot)).contiguous()
+        v_top = torch.ones((B, He, W), dtype=torch.float32, device=dev)
+        v_top[:, :r] = 0.0
+        v_top[:, He - n_bot:] = 0.0
+        rnd = torch.as_tensor(rng.integers(0, n_bins, (B, He, W), dtype=np.uint8), device=dev)
+        frac = torch.as_tensor(rng.random((B, He, W), dtype=np.float32), device=dev)
+        holes = frac.clone()
+        holes[:, 100:164, 200:264] = 0.0
+        holes[:, -64:, :64] = 0.0
+        row: dict = {"shape": [B, He, W]}
+        for kind, (d, g, v) in {"zero_halos": (top, g_top, v_top),
+                                "fractional": (rnd, g_top, frac),
+                                "zero_windows": (rnd, g_top, holes)}.items():
+            plain, plain_ms = timed_once(lambda: K.weighted_median_plain(d, g, r, n_bins, sig, v))
+            got = K.weighted_median(d, g, r, n_bins, sig, valid=v)
+            diff = (got.int() - plain.int()).abs()
+            row[kind] = {"n_differ": int((diff > 0).sum()), "max_abs_err": int(diff.max()),
+                         "plain_ms_once": plain_ms}
+            if kind == "zero_windows":
+                row[kind]["max_in_empty_window"] = int(got[:, 100 + r:164 - r,
+                                                           200 + r:264 - r].max())
+            log(f"parity wmf_valid {tname} {tuple(d.shape)} {kind}: {row[kind]['n_differ']} px "
+                f"differ (0 required), max|diff| {row[kind]['max_abs_err']}")
+            if row[kind]["n_differ"] or row[kind].get("max_in_empty_window", 0):
+                raise AssertionError(f"wmf_valid {tname} {kind} is not bitwise its plain version")
+            if kind == "zero_halos":
+                b_ms, b_by = bound_wmf_valid(d, plain, v, r, n_bins)
+                row.update(ms=cuda_ms(lambda: K.weighted_median(d, g, r, n_bins, sig, valid=v)),
+                           valid_less_ms=cuda_ms(lambda: K.weighted_median(d, g, r, n_bins, sig)),
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        row["max_abs_err"] = max(row[k]["max_abs_err"] for k in ("zero_halos", "fractional",
+                                                                 "zero_windows"))
+        log(f"time wmf_valid {tname} {tuple(top.shape)} (zero halos): valid mode "
+            f"{row['ms']:.4f} ms, "
+            f"valid-less {row['valid_less_ms']:.4f} ms at the same shape, plain "
+            f"{row['plain_ms']:.4f} ms (one run), bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} of bound; {smi}")
+        rep[tname] = row
+    return rep
+
+
+def tile_rows(views: torch.Tensor, yi: int, yn: int, halo: int, s: int) -> torch.Tensor:
+    """Row tile `yi` of `yn` of (N, H, W, 3) views extended by `halo` rows
+    each side as `halo_exchange_rows(edge='reflect', block=s)` extends it:
+    the neighbours' rows inside the frame, the tile's own s-row block
+    reflect at the frame's edges."""
+    from primestereomatch_torch.parallel.sharded import _reflect_blocks
+
+    ht = views.shape[1] // yn
+    y0 = yi * ht
+    own = views[:, y0:y0 + ht]
+
+    def edge(top: bool) -> torch.Tensor:
+        return own[:, torch.as_tensor(_reflect_blocks(ht, halo, s, top), device=views.device)]
+
+    above = edge(True) if yi == 0 else views[:, y0 - halo:y0]
+    below = edge(False) if yi == yn - 1 else views[:, y0 + ht:y0 + ht + halo]
+    return torch.cat([above, own, below], dim=1).contiguous()
+
+
+def sharded_kernel_parity(dev, smi: str, lt: torch.Tensor, rt: torch.Tensor, cfg) -> dict:
+    """The sharded meshes' kernels against their plain versions on the
+    same CUDA tensors, at the shapes the meshes give them. K1 at one rank's
+    extended tile of each tiled mesh (TILE_RANKS): its halo rows, its d
+    block's costs (`sharded.tile_costs_low`) and the tile's guide
+    statistics, within atol 2e-4 / rtol 1e-3. K4 (same tolerance), K2
+    (2e-3 of pixels) and K3 (bitwise) at the 2-frame batch of the
+    batch-only meshes, 4 views of H_SHARD x 2208. Each kernel's ms, its
+    plain version's (one run) and the bound."""
+    from primestereomatch_torch.ops.guided_filter import fgf_tile_halo
+    from primestereomatch_torch.parallel.sharded import tile_costs_low
+
+    s, k, D = cfg.subsample, cfg.fgf_low_radius, cfg.max_dis
+    r, sig = cfg.wmf_radius, cfg.wmf_sigma
+    halo = fgf_tile_halo(cfg.gif_radius, s)
+    out: dict = {"lowmaps": {}, "cvc_lowmaps": {}, "wta": {}, "wmf": {}}
+
+    def held(kname, key, where, shape, fk, fp, bnd, kind):
+        got = fk()
+        want, plain_ms = timed_once(fp)
+        if kind == "maps":
+            err = (got - want).abs()
+            row = {"max_abs_err": float(err.max()), "n_differ": int((err > 0).sum()),
+                   "n": got.numel()}
+            ok, rule = torch.allclose(got, want, atol=2e-4, rtol=1e-3), "atol 2e-4, rtol 1e-3"
+        else:
+            diff = (got.int() - want.int()).abs()
+            row = {"max_abs_err": int(diff.max()), "n_differ": int((diff > 0).sum()),
+                   "n": diff.numel()}
+            row["mismatch"] = row["n_differ"] / row["n"]
+            if kind == "wta":
+                ok, rule = row["mismatch"] <= 2e-3 and int(got.min()) >= 1, "bound 2e-3"
+            else:
+                ok, rule = row["n_differ"] == 0, "0 px required"
+        del got
+        b_ms, b_by = bnd(want)
+        row.update(shape=list(shape), ms=cuda_ms(fk), plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        log(f"parity sharded {kname} at {where} {tuple(shape)}: max|diff| "
+            f"{row['max_abs_err']:.3e}, {row['n_differ']}/{row['n']} differ ({rule}); kernel {row['ms']:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (one run), bound {b_ms:.5f} ms ({b_by}), "
+            f"{b_ms / row['ms']:.1%} of bound; {smi}")
+        if not ok:
+            raise AssertionError(f"{kname} disagrees with its plain version at {where}")
+        out[kname][key] = row
+        return want
+
+    for name, (yi, di) in TILE_RANKS.items():
+        (b, y, d), n_frames = SHARD_MESHES[name]
+        bl = n_frames // b
+        ext = tile_rows(torch.cat([lt[:bl], rt[:bl]]), yi, y, halo, s)
+        d_block = D // d
+        p_low = tile_costs_low(ext, cfg, di * d_block, d_block)
+        h, w = p_low.shape[-2:]
+        stats = guide_stats(ext, (h, w), k, cfg.gif_eps).reshape(-1, 12, h, w).contiguous()
+        p_low = p_low.reshape(-1, d_block, h, w).contiguous()
+        held("lowmaps", name, f"mesh {name} rank (y {yi}, d {di}) extended tile", p_low.shape,
+             lambda: K.low_maps(p_low, stats, k), lambda: K.low_maps_plain(p_low, stats, k),
+             lambda _: bound_lowmaps(p_low, k), "maps")
+        del ext, p_low, stats
+        torch.cuda.empty_cache()
+
+    views, grds = stacked_views(lt, rt, cfg)
+    H, W = views.shape[1:3]
+    stats = guide_stats(views, (H // s, W // s), k, cfg.gif_eps).contiguous()
+    cost = dict(alpha=cfg.alpha, border_cost=cfg.border_cost, tau1=cfg.tau1, tau2=cfg.tau2)
+    key, where = f"batch_{H}x{W}_4_views", "the batch-only meshes' 2-frame batch"
+    maps = held("cvc_lowmaps", key, where, views.shape[:3],
+                lambda: K.cvc_low_maps(views, grds, stats, D, k, **cost),
+                lambda: K.cvc_low_maps_plain(views, grds, stats, D, k, **cost),
+                lambda _: bound_cvc_lowmaps(views, grds, stats, D, k), "maps")
+    disp = held("wta", key, where, views.shape[:3], lambda: K.upsample_wta(views, maps),
+                lambda: K.upsample_wta_plain(views, maps, d_chunk=16),
+                lambda _: bound_wta(views, maps), "wta")
+    del maps, grds, stats
+    g_u8 = _to_u8(views).contiguous()
+    held("wmf", key, where, views.shape[:3], lambda: K.weighted_median(disp, g_u8, r, D, sig),
+         lambda: K.weighted_median_plain(disp, g_u8, r, D, sig),
+         lambda med: bound_wmf(disp, med, r, D), "exact")
+    del views, g_u8, disp
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_phase(dev, smi: str) -> dict:
+    """The sharded phase (parallel/): the 2K frame (D = 256) padded to
+    H_SHARD rows. World 1 under NCCL, mesh (1, 1, 1), in this process:
+    the sharded GIF and SGBM steps on 2 frames, each mesh's kernels asserted
+    and every frame bitwise the direct pipeline. Then SHARD_RANKS ranks
+    sharing the card under gloo (sharded_rank): the tiled meshes launch K1
+    and K3's valid mode and nothing else, within 2e-3 of the single-device
+    card output with and without JointWMF and the field recovered; the
+    batch-only mesh (4, 1, 1) launches K4, K2, K3 and is bitwise. The
+    launcher (`python -m primestereomatch_torch.launch local`) at (1, 2, 2)
+    and (2, 2, 1) with --check, at the same width, rows and D. K1, K4, K2
+    and K3 at the meshes' shapes (sharded_kernel_parity) and K3's valid
+    mode at the tiled meshes' shapes (wmf_valid_parity) against their plain
+    versions."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from primestereomatch_torch.parallel import (MeshPlan, make_mesh, make_sharded_gif,
+                                                 make_sharded_sgbm)
+    from primestereomatch_torch.parallel.launch import initialize
+
+    cfg = psm.GIFConfig(max_dis=256)
+    scfg = psm.SGBMConfig(num_disparities=256)
+    left, right, rect = sharded_frames()
+    out: dict = {"card": smi, "rows": H_SHARD, "launches": {}, "meshes": {}}
+    lt, rt = (torch.as_tensor(a, device=dev) for a in (left, right))
+    # the single-device card outputs the meshes are held to
+    refs = {pp: [psm.stereo_gif_forward(lt[i], rt[i], cfg, pp, device=dev) for i in range(2)]
+            for pp in (True, False)}
+    refs = {pp: [torch.stack([f[v] for f in fr]) for v in (0, 1)] for pp, fr in refs.items()}
+    direct_ms = frame_ms(lambda: psm.stereo_gif_forward_batch(lt, rt, cfg, device=dev), 2) / 2
+
+    # ---- world 1, NCCL: the one-card deployment ------------------------------
+    backend = initialize(f"localhost:{_free_port()}", 1, 0)
+    if backend != "nccl":
+        raise AssertionError(f"world 1 on one card took {backend}, not nccl")
+    try:
+        mesh = make_mesh(MeshPlan(1, 1, 1))
+        step = make_sharded_gif(mesh, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        lo, ro, _ = step(lt, rt)
+        torch.cuda.synchronize()
+        counts = _launched()
+        out["launches"]["world1_gif"] = counts
+        if set(counts) != {"cvc_lowmaps", "wta", "wmf"}:
+            raise AssertionError(f"world-1 sharded GIF launched {counts}")
+        if not (torch.equal(lo, refs[True][0]) and torch.equal(ro, refs[True][1])):
+            raise AssertionError("world-1 sharded GIF is not bitwise the direct pipeline")
+        w1 = {"backend": backend, "launches": counts,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "ms_per_frame": frame_ms(lambda: step(lt, rt), 2) / 2,
+              "direct_ms_per_frame": direct_ms}
+        lu, ru = (torch.as_tensor(np.clip(np.rint(a * 255), 0, 255).astype(np.uint8), device=dev)
+                  for a in (left, right))
+        sstep = make_sharded_sgbm(mesh, scfg)
+        K.reset_launches()
+        sout, _ = sstep(lu, ru)
+        torch.cuda.synchronize()
+        scounts = _launched()
+        out["launches"]["world1_sgbm"] = scounts
+        if set(scounts) != set(SGBM_KERNELS) or (scounts["bt_cost"], scounts["sgbm_scan"],
+                                                  scounts["select"]) != (2, 4, 2):
+            raise AssertionError(f"world-1 sharded SGBM launched {scounts}")
+        for i in range(2):
+            want = psm.stereo_sgbm_forward(lu[i], ru[i], scfg, device=dev)
+            if not torch.equal(sout[i], want):
+                raise AssertionError(f"world-1 sharded SGBM frame {i} is not the direct pipeline's")
+            d16 = sout[i].cpu().numpy()[:H2K]
+            check_medians_2k(np.where(d16 >= 0, d16 / 16.0, np.nan), None, rect)
+        w1["sgbm_ms_per_frame"] = frame_ms(lambda: sstep(lu, ru), 2) / 2
+        w1["sgbm_direct_ms_per_frame"] = frame_ms(
+            lambda: psm.stereo_sgbm_forward(lu[0], ru[0], scfg, device=dev), 2)
+        # a profiler pass a step (2 frames a step)
+        w1["profile_per_step"] = profile_frames(lambda: step(lt, rt), GIF_TAGS, frames=3)
+        w1["sgbm_profile_per_step"] = profile_frames(lambda: sstep(lu, ru), SGBM_TAGS, frames=3)
+        for key in ("profile_per_step", "sgbm_profile_per_step"):
+            prof = w1[key]
+            by = ", ".join(f"{k} {v:.3f}" for k, v in prof["device_ms_by_kernel"].items())
+            log(f"profile sharded world 1 {key}: wall {prof['wall_ms']:.3f} ms a step of 2 frames "
+                f"under the profiler, device {prof['device_ms']:.3f} ms ({by}), idle share "
+                f"{prof['idle_share']:.1%}, {prof['device_ops_per_frame']:.0f} device ops a step")
+        out["meshes"]["world1_1x1x1"] = w1
+        log(f"sharded world 1 (nccl), mesh (1,1,1), 2 frames 2208x{H_SHARD} D=256: GIF "
+            f"{counts} bitwise the direct pipeline, {w1['ms_per_frame']:.3f} ms a frame "
+            f"(direct batch {direct_ms:.3f}); SGBM {scounts} bitwise, "
+            f"{w1['sgbm_ms_per_frame']:.3f} ms a frame (direct "
+            f"{w1['sgbm_direct_ms_per_frame']:.3f}); "
+            f"peak {w1['peak_gib']:.2f} GiB; {smi}")
+    finally:
+        dist.destroy_process_group()
+    del lu, ru, sout, lo, ro
+    torch.cuda.empty_cache()
+
+    # ---- four ranks on the card, gloo, host-staged ---------------------------
+    work = tempfile.mkdtemp(prefix="psm_sharded_")
+    try:
+        np.savez(pathlib.Path(work) / "frames.npz", left=left, right=right)
+        ctx = multiprocessing.get_context("spawn")
+        port = _free_port()
+        procs = [ctx.Process(target=sharded_rank, args=(r, port, work))
+                 for r in range(SHARD_RANKS)]
+        t0 = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        deadline = time.monotonic() + 600
+        while any(pr.is_alive() for pr in procs):
+            if any(pr.exitcode for pr in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+            pr.join()
+        if any(pr.exitcode for pr in procs):
+            raise AssertionError(f"a sharded rank failed: exit codes "
+                                 f"{[pr.exitcode for pr in procs]}")
+        ranks = []
+        for r in range(SHARD_RANKS):
+            with open(pathlib.Path(work) / f"rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        out["ranks_seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for key in [k for k in ranks[0] if k != "backend"]:
+        name = key.removesuffix("_no_pp")
+        (b, y, d), n_frames = SHARD_MESHES[name]
+        pp = not key.endswith("_no_pp")
+        counts: dict = {}
+        for res in ranks:
+            for k, v in res[key]["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+        out["launches"][key] = counts
+        tiled = y > 1 or d > 1
+        expect = ({"lowmaps", "wmf_valid"} if pp else {"lowmaps"}) if tiled else \
+            {"cvc_lowmaps", "wta", "wmf"}
+        if set(counts) != expect:
+            raise AssertionError(f"sharded {key} launched {counts}, expected exactly {expect}")
+        got = _assemble(ranks, key, n_frames)
+        want = [np.concatenate([t.cpu().numpy()] * (n_frames // 2)) for t in refs[pp]]
+        n_differ = [int((g != w).sum()) for g, w in zip(got, want)]
+        mismatch = max(n / g.size for n, g in zip(n_differ, got))
+        row = {"plan": [b, y, d], "frames": n_frames, "postprocess": pp, "launches": counts,
+               "n_differ": n_differ, "mismatch": mismatch,
+               "backend": ranks[0]["backend"],
+               "ms_per_frame": ranks[0][key]["ms_per_frame"],
+               "halo_ms": [1e3 * res[key]["comm"]["halo_s"] for res in ranks],
+               "merge_ms": [1e3 * res[key]["comm"]["merge_s"] for res in ranks],
+               "halo_bytes": [res[key]["comm"]["halo_bytes"] for res in ranks],
+               "merge_bytes": [res[key]["comm"]["merge_bytes"] for res in ranks],
+               "peak_gib": [res[key]["peak_gib"] for res in ranks]}
+        if tiled:
+            if mismatch > 2e-3:
+                raise AssertionError(f"sharded {key}: {n_differ} px differ from the single-device "
+                                     f"card output (bound 2e-3)")
+            row["medians"] = [check_medians_2k(got[0][i][:H2K].astype(np.float64),
+                                               got[1][i][:H2K].astype(np.float64), rect)
+                              for i in range(n_frames)]
+        elif any(n_differ):
+            raise AssertionError(f"batch-only {key} is not bitwise the single-device output")
+        out["meshes"][key] = row
+        log(f"sharded {key} mesh (b,y,d)=({b},{y},{d}) x{SHARD_RANKS} ranks on one card "
+            f"({row['backend']}, collectives staged through host memory), {n_frames} frames "
+            f"2208x{H_SHARD} D=256{'' if pp else ', no JointWMF'}: launches {counts}; "
+            f"{n_differ} px differ from the single-device card output "
+            f"({'bound 2e-3' if tiled else 'bitwise required'}); {row['ms_per_frame']:.3f} ms a "
+            f"frame; halo {max(row['halo_ms']):.3f} ms / {max(row['halo_bytes'])} B a rank, merge "
+            f"{max(row['merge_ms']):.3f} ms / {max(row['merge_bytes'])} B a rank (host-staged); "
+            f"peak {max(row['peak_gib']):.2f} GiB a rank; {smi}")
+
+    # ---- the launcher ---------------------------------------------------------
+    out["launcher"] = {}
+    for shape in ("1,2,2", "2,2,1"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "primestereomatch_torch.launch", "local", "--processes",
+             str(SHARD_RANKS), "--mesh-shape", shape, "--height", str(H_SHARD), "--width",
+             str(W2K), "--max-dis", str(cfg.max_dis), "--check", "--port", str(_free_port())],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        ok_lines = [ln for ln in proc.stdout.splitlines() if "verified bitwise" in ln]
+        out["launcher"][shape] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                                  "verified_ranks": len(ok_lines)}
+        for ln in proc.stdout.splitlines():
+            log(f"launcher {shape}: {ln}")
+        if proc.returncode or len(ok_lines) != SHARD_RANKS:
+            raise AssertionError(f"launcher at mesh {shape} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+
+    # ---- the kernels at the meshes' shapes against their plain versions ------
+    out["kernel_parity"] = sharded_kernel_parity(dev, smi, lt, rt, cfg)
+
+    # ---- K3's participation-weight mode ---------------------------------------
+    views_u8 = _to_u8(torch.cat([lt, rt])).contiguous()      # (4, H_SHARD, W, 3): l0 l1 r0 r1
+    disp = torch.cat(refs[False]).contiguous()               # WTA output, same view order
+    out["wmf_valid"] = wmf_valid_parity(dev, smi, disp, views_u8, cfg.wmf_radius, cfg.max_dis,
+                                        cfg.wmf_sigma)
+    out["launches_summed"] = {k: sum(c.get(k, 0) for c in out["launches"].values())
+                              for k in GIF_KERNELS + SGBM_KERNELS + ("wmf_valid",)}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card",
@@ -2033,6 +2553,15 @@ def run(tables: dict) -> int:
                     for k in GIF_KERNELS + SGBM_KERNELS}
     log(f"app main paths, launches summed: {app_launches}")
 
+    # ---- the sharded phase: counts at 0 just before each mesh ---------------
+    torch.cuda.empty_cache()
+    shard = sharded_phase(dev, smi)
+    shard_launches = shard["launches_summed"]
+    log(f"sharded main paths, launches summed: {shard_launches}")
+    if not shard_launches["wmf_valid"] or not shard_launches["lowmaps"]:
+        raise AssertionError(f"the tiled meshes never launched K1 or K3's valid mode: "
+                             f"{shard_launches}")
+
     rows = []
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     for kname in GIF_KERNELS + SGBM_KERNELS:
@@ -2047,7 +2576,7 @@ def run(tables: dict) -> int:
             "source": f"primestereomatch_torch/csrc/{kname}.cu",
             "replaces": TPU_KERNEL[kname],
             "launches": (launches[kname] if kname in GIF_KERNELS else slaunches[kname])
-            + cal_launches[kname] + app_launches[kname],
+            + cal_launches[kname] + app_launches[kname] + shard_launches[kname],
             **{key: t[key] for key in timed}, "library_ms": None, "at": at,
             "at_2k": {key: k2[key] for key in timed},
             "mismatch": {first: t.get("mismatch", t["n_differ"] / t["n"]),
@@ -2084,10 +2613,47 @@ def run(tables: dict) -> int:
             row["launches_by_path"] = {p: c.get(kname, 0) for p, c in path_launches.items()}
         row["launches_calibrated"] = {p: c.get(kname, 0) for p, c in cal["launches"].items()}
         row["launches_app"] = {p: c.get(kname, 0) for p, c in app["launches"].items()}
+        row["launches_sharded"] = {p: c.get(kname, 0) for p, c in shard["launches"].items()}
+        if kname in shard["kernel_parity"]:
+            row["at_sharded"] = shard["kernel_parity"][kname]
         row["at_calibrated"] = {g: {key: cal[g]["kernels"][kname][key]
                                     for key in timed + ("shape",)}
                                 for g in CALIB_CASES if kname in cal[g]["kernels"]}
         rows.append(row)
+    # K5, the TPU's generic-ratio kernel: K2's source serves it with its
+    # per-pixel kernel, which only the subsample=1 path (ratio 1) takes
+    g = report["teddy_s1"]["wta"]
+    if g["design"]["kernel"] != "per-pixel":
+        raise AssertionError(f"subsample=1 took K2's {g['design']['kernel']} kernel")
+    k5_launches = path_launches["teddy_s1"]["wta"]
+    k2_row = next(r for r in rows if r["name"] == "wta")
+    k2_row["launches"] -= k5_launches
+    rows.insert(rows.index(k2_row) + 1, {
+        "name": "wta_generic", "route": "cuda", "source": "primestereomatch_torch/csrc/wta.cu",
+        "replaces": TPU_KERNEL["wta_generic"], "launches": k5_launches,
+        **{key: g[key] for key in timed}, "library_ms": None,
+        "at": "teddy 375x450 D=64, subsample=1 (ratio 1): the per-pixel kernel",
+        "mismatch": g.get("mismatch", g["n_differ"] / g["n"])})
+    # K3's participation-weight mode: its own entry of csrc/wmf.cu, on the
+    # tiled meshes' path; timed at the (1, 2, 2) mesh's JointWMF tile
+    wv = shard["wmf_valid"]
+    t = wv["y2"]
+    rows.append({
+        "name": "wmf_valid", "route": "cuda", "source": "primestereomatch_torch/csrc/wmf.cu",
+        "replaces": TPU_KERNEL["wmf_valid"], "launches": shard_launches["wmf_valid"],
+        **{key: t[key] for key in timed}, "library_ms": None,
+        "at": f"{t['shape'][0]}x{t['shape'][1]}x{t['shape'][2]} zero-halo tile of mesh (1,2,2)",
+        "valid_less_ms_same_shape": t["valid_less_ms"],
+        "at_tiles": {n: {key: wv[n][key] for key in timed + ("shape", "valid_less_ms")}
+                     for n in wv},
+        "n_differ": {n: {k: wv[n][k]["n_differ"] for k in ("zero_halos", "fractional",
+                                                           "zero_windows")} for n in wv},
+        "launches_sharded": {p: c.get("wmf_valid", 0) for p, c in shard["launches"].items()},
+    })
+    k3_2k = report["2k"]["wmf"]["ms"]
+    log(f"K3 valid-less at 2K {k3_2k:.4f} ms in this run ({k3_2k / 2.8711 - 1:+.1%} against "
+        f"PERF.md's 2.8711 ms); valid mode {t['ms']:.4f} against valid-less "
+        f"{t['valid_less_ms']:.4f} ms at the tile {t['shape']}; {smi}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -2095,7 +2661,7 @@ def run(tables: dict) -> int:
         "fused_parity": fused_report, "bp_nonocc": bp, "path_launches": path_launches,
         "e2e": e2e, "medians_2k": med2k, "full_vs_maps_2k": full_vs_maps,
         "sgbm_quality": sgbm_q, "sgbm_per_frame": sper_frame, "sgbm_medians_2k": smed2k,
-        "peak_gib": peak, "variants": variants, "calibrated": cal, "app": app,
+        "peak_gib": peak, "variants": variants, "calibrated": cal, "app": app, "sharded": shard,
         "build_logs": _build.BUILD_LOGS, "build_seconds": build_secs,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))

@@ -51,8 +51,21 @@
 //     Adding the same weights to a bin in the same order gives the same
 //     bits, so the medians equal the plain version's at every pixel.
 //
-// Layout: disp (B, H, W) uint8, guide (B, H, W, 3) uint8, out (B, H, W)
-// uint8, wtab (N_DIST2) float scratch. Grid (ceil(W/TW), ceil(H/TH), B).
+// The participation-weight mode (the TPU kernel's has_valid, used by the
+// row-sharded pipeline's zero halos; entry psm_joint_wmf_valid): every
+// window weight is multiplied by a float32 plane valid[q] of nonnegative
+// weights, w = wtab[dist2] * valid[q], and the output is 0 where the total
+// is 0. The block stages the plane's haloed tile in shared memory beside
+// the words; a neighbour with valid == 0 is staged as NO_D (its product
+// would add +0.0, which changes no bin's bits) and stays out of [dmin,
+// dmax]. Here the table holds the unflushed expf and the product is
+// flushed instead: the plain version's scatter_add_ flushes the subnormal
+// products, whatever the factors. The mode is a template flag: the
+// valid-less kernel is compiled as before.
+//
+// Layout: disp (B, H, W) uint8, guide (B, H, W, 3) uint8, valid (B, H, W)
+// float32 (valid mode), out (B, H, W) uint8, wtab (N_DIST2) float scratch.
+// Grid (ceil(W/TW), ceil(H/TH), B).
 
 #include <cfloat>
 #include <cuda_runtime.h>
@@ -84,26 +97,33 @@ constexpr unsigned NO_D = 1023;            // in no bin window
 constexpr unsigned CMASK = 0x003f3f3fu;
 constexpr unsigned FULL = 0xffffffffu;
 
+// FLUSH: subnormal entries stored as 0 (the valid-less mode, whose weights
+// are the entries themselves); the valid mode flushes its products instead.
+template <bool FLUSH>
 __global__ void wmf_weights_kernel(float* __restrict__ wtab, float inv_two_sig2) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < N_DIST2) {
     const float w = expf(-(float)i * inv_two_sig2);
-    wtab[i] = w >= FLT_MIN ? w : 0.0f;
+    wtab[i] = !FLUSH || w >= FLT_MIN ? w : 0.0f;
   }
 }
 
 // Sum the bins [lo, lo + NB) of one pixel over its window, in row-major
 // offset order. hp: the thread's bins (stride NT); t0: the window's first
 // word in the tile. U offsets are read and weighted before their sums are
-// added, so the table reads of a group are in flight together.
+// added, so the table reads of a group are in flight together. VALID: v0
+// is the window's first participation weight in the staged plane.
+template <bool VALID>
 __device__ __forceinline__ void sum_window(float* __restrict__ hp,
-                                           const uint32_t* __restrict__ t0, int tw, int k2,
+                                           const uint32_t* __restrict__ t0,
+                                           const float* __restrict__ v0, int tw, int k2,
                                            uint32_t cw, unsigned lo,
                                            const float* __restrict__ wtab) {
 #pragma unroll 8
   for (int k = 0; k < NB; ++k) hp[k * NT] = 0.0f;
   for (int oy = 0; oy < k2; ++oy) {
     const uint32_t* tr = t0 + oy * tw;
+    const float* vr = v0 + oy * tw;
     for (int ox = 0; ox < k2; ox += U) {
       unsigned k[U];
       float w[U];
@@ -115,6 +135,10 @@ __device__ __forceinline__ void sum_window(float* __restrict__ hp,
         if (k[u] < (unsigned)NB) {
           const unsigned e = __vabsdiffu4(cw, q & CMASK);
           w[u] = __ldg(wtab + __dp4a(e, e, 0u));
+          if constexpr (VALID) {
+            w[u] = w[u] * vr[ox + u];
+            if (fabsf(w[u]) < FLT_MIN) w[u] = 0.0f;
+          }
         }
       }
 #pragma unroll
@@ -124,14 +148,16 @@ __device__ __forceinline__ void sum_window(float* __restrict__ hp,
   }
 }
 
+template <bool VALID>
 __global__ void __launch_bounds__(NT)
 joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ guide,
-                 uint8_t* __restrict__ out, const float* __restrict__ wtab, int H, int W,
-                 int r, int n_bins) {
+                 const float* __restrict__ valid, uint8_t* __restrict__ out,
+                 const float* __restrict__ wtab, int H, int W, int r, int n_bins) {
   extern __shared__ float smem[];
   float* hist = smem;                          // [NB][NT]
   float* cumw = hist + NB * NT;                // [MAXWIN][NT], cum at each window's end
   uint32_t* tile = (uint32_t*)(cumw + MAXWIN * NT);   // [TH + 2r][TW + 2r]
+  float* vtile = (float*)(tile + (TH + 2 * r) * (TW + 2 * r));   // VALID: the same shape
   __shared__ int s_dmin, s_dmax;
 
   const int tid = threadIdx.x;
@@ -155,7 +181,13 @@ joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ g
     if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
       const size_t q = (size_t)yy * W + xx;
       unsigned d = db[q];
-      if (d < (unsigned)n_bins) {
+      bool takes_part = true;
+      if constexpr (VALID) {
+        const float v = valid[img + q];
+        vtile[i] = v;
+        takes_part = v != 0.0f;
+      }
+      if (d < (unsigned)n_bins && takes_part) {
         mn = min(mn, (int)d);
         mx = max(mx, (int)d);
       } else {
@@ -186,6 +218,7 @@ joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ g
   const int nwin = (dmax - dmin) / NB + 1;
   const int k2 = 2 * r + 1;
   const uint32_t* t0 = tile + ty * tw + tx;
+  const float* v0 = vtile + ty * tw + tx;
   const uint32_t cw = t0[r * tw + r] & CMASK;
   float* hp = hist + tid;
   float* cp = cumw + tid;
@@ -193,7 +226,7 @@ joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ g
   // sweep A: every window in order; cum runs on through the bins
   float cum = 0.0f;
   for (int w = 0; w < nwin; ++w) {
-    sum_window(hp, t0, tw, k2, cw, (unsigned)(dmin + w * NB), wtab);
+    sum_window<VALID>(hp, t0, v0, tw, k2, cw, (unsigned)(dmin + w * NB), wtab);
 #pragma unroll 8
     for (int k = 0; k < NB; ++k) cum += hp[k * NT];
     cp[w * NT] = cum;
@@ -207,7 +240,7 @@ joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ g
   while (wb < nwin - 1 && !(cp[wb * NT] >= half)) ++wb;
   // sweep B: the window of the crossing again, unless its sums are still there
   if (wb != nwin - 1)
-    sum_window(hp, t0, tw, k2, cw, (unsigned)(dmin + wb * NB), wtab);
+    sum_window<VALID>(hp, t0, v0, tw, k2, cw, (unsigned)(dmin + wb * NB), wtab);
   cum = wb ? cp[(wb - 1) * NT] : 0.0f;
   int k = 0;
   for (; k < NB - 1; ++k) {
@@ -217,9 +250,32 @@ joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ g
   *o = (uint8_t)(dmin + wb * NB + k);
 }
 
-// Bytes of dynamic shared memory a block needs at window radius r.
-long long smem_bytes(int r) {
-  return 4 * ((long long)(NB + MAXWIN) * NT + (long long)(TH + 2 * r) * (TW + 2 * r));
+// Bytes of dynamic shared memory a block needs at window radius r: the bins,
+// the window ends' cums, the words and (VALID) the plane's tile.
+long long smem_bytes(int r, bool valid) {
+  const long long halo = (long long)(TH + 2 * r) * (TW + 2 * r);
+  return 4 * ((long long)(NB + MAXWIN) * NT + halo * (valid ? 2 : 1));
+}
+
+template <bool VALID>
+int launch(const uint8_t* disp, const uint8_t* guide, const float* valid, uint8_t* out,
+           float* wtab, int B, int H, int W, int r, int n_bins, float inv_two_sig2,
+           void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  if (r < 0 || n_bins < 1 || n_bins > 256) return (int)cudaErrorInvalidValue;
+  if (smem_bytes(r, VALID) + 64 > SMEM_LIMIT) return -1;   // 64: the static part
+  const int smem = (int)smem_bytes(r, VALID);
+  cudaStream_t s = (cudaStream_t)stream;
+  wmf_weights_kernel<!VALID><<<(N_DIST2 + 255) / 256, 256, 0, s>>>(wtab, inv_two_sig2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(joint_wmf_kernel<VALID>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  joint_wmf_kernel<VALID><<<grid, NT, smem, s>>>(disp, guide, valid, out, wtab, H, W, r,
+                                                 n_bins);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -229,18 +285,16 @@ long long smem_bytes(int r) {
 extern "C" int psm_joint_wmf(const uint8_t* disp, const uint8_t* guide, uint8_t* out,
                              float* wtab, int B, int H, int W, int r, int n_bins,
                              float inv_two_sig2, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
-  if (r < 0 || n_bins < 1 || n_bins > 256) return (int)cudaErrorInvalidValue;
-  if (smem_bytes(r) + 64 > SMEM_LIMIT) return -1;   // 64: the static part
-  const int smem = (int)smem_bytes(r);
-  cudaStream_t s = (cudaStream_t)stream;
-  wmf_weights_kernel<<<(N_DIST2 + 255) / 256, 256, 0, s>>>(wtab, inv_two_sig2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(joint_wmf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  joint_wmf_kernel<<<grid, NT, smem, s>>>(disp, guide, out, wtab, H, W, r, n_bins);
-  return (int)cudaGetLastError();
+  return launch<false>(disp, guide, nullptr, out, wtab, B, H, W, r, n_bins, inv_two_sig2,
+                       stream);
+}
+
+// The participation-weight mode: valid (B, H, W) float32 multiplies every
+// window weight; 0 where a pixel's total weight is 0. Returns as above.
+extern "C" int psm_joint_wmf_valid(const uint8_t* disp, const uint8_t* guide,
+                                   const float* valid, uint8_t* out, float* wtab, int B,
+                                   int H, int W, int r, int n_bins, float inv_two_sig2,
+                                   void* stream) {
+  return launch<true>(disp, guide, valid, out, wtab, B, H, W, r, n_bins, inv_two_sig2,
+                      stream);
 }

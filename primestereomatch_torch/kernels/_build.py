@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) into its own shared library, loaded with ctypes (one
-source may hold the entries of two kernels: `segmin` is in `speckle.cu`). The
+source may hold the entries of two kernels: `segmin` is in `speckle.cu`,
+K3's participation-weight mode `wmf_valid` in `wmf.cu`). The
 build runs at first use, from the sources in the package only, into
 `build/torch_kernels/` beside the package; a library's file name carries
 a hash of its source, the shared headers (`csrc/*.cuh`) and the flags, so
@@ -49,6 +50,7 @@ _ARGTYPES = {
     "cvc_wta": ("psm_cvc_wta",
                 [_VP] * 10 + [_I] * 7 + [_F] + [_I] * 4 + [_F] * 5 + [_VP]),
     "wmf": ("psm_joint_wmf", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]),
+    "wmf_valid": ("psm_joint_wmf_valid", [_VP] * 5 + [_I] * 5 + [_F, _VP]),
     "bt_cost": ("psm_bt_cost", [_VP, _VP, _VP] + [_I] * 8 + [_VP]),
     "sgbm_scan": ("psm_sgm_scan",
                   [_VP, _I, _I] + [_VP, _I, _I, _I, _I] * 2 + [_I] * 6 + [_VP]),
@@ -57,7 +59,7 @@ _ARGTYPES = {
     "segmin": ("psm_segmin_sweep", [_VP] * 3 + [_I] * 7 + [_VP]),
 }
 # kernels whose entry lives in another kernel's source
-_SOURCE = {"segmin": "speckle"}
+_SOURCE = {"segmin": "speckle", "wmf_valid": "wmf"}
 NAMES = tuple(_ARGTYPES)
 SOURCES = tuple(dict.fromkeys(_SOURCE.get(n, n) for n in NAMES))
 LAUNCHES = {name: 0 for name in NAMES}

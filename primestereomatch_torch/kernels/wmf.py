@@ -7,7 +7,9 @@ in shared memory as one packed word per pixel, takes the weights from a
 table of the integer colour distances, and sums each pixel's bins a window
 of NB bins at a time between the least and greatest disparity of the tile,
 in the plain version's order: the medians are the plain version's, bit for
-bit.
+bit. With a participation plane (`valid`, the TPU kernel's has_valid mode)
+the second entry of the same source multiplies every window weight by it
+and writes 0 where a pixel's total weight is 0 (`LAUNCHES["wmf_valid"]`).
 """
 
 from __future__ import annotations
@@ -26,11 +28,13 @@ N_DIST2 = 3 * 63 * 63 + 1      # squared distances of 6-bit colours: the weight 
 
 
 def weighted_median_plain(disp: torch.Tensor, guide_u8: torch.Tensor, radius: int,
-                          n_bins: int, sigma: float) -> torch.Tensor:
+                          n_bins: int, sigma: float,
+                          valid: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, view by view."""
     return torch.stack([
-        joint_wmf(d, g, radius=radius, n_bins=n_bins, sigma=sigma)
-        for d, g in zip(disp, guide_u8)
+        joint_wmf(d, g, radius=radius, n_bins=n_bins, sigma=sigma,
+                  valid=None if valid is None else valid[i])
+        for i, (d, g) in enumerate(zip(disp, guide_u8))
     ])
 
 
@@ -56,11 +60,13 @@ def bin_window_passes(disp: torch.Tensor, radius: int, n_bins: int) -> torch.Ten
 
 
 def weighted_median(disp: torch.Tensor, guide_u8: torch.Tensor, radius: int = 9,
-                    n_bins: int = 64, sigma: float = 25.5) -> torch.Tensor:
-    """(B, H, W) uint8 disparities + (B, H, W, 3) uint8 guide -> (B, H, W)
-    uint8 medians. Launches the CUDA kernel for CUDA tensors; CPU tensors
-    take the plain version. A radius whose haloed tile does not fit a
-    block's shared memory raises."""
+                    n_bins: int = 64, sigma: float = 25.5,
+                    valid: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, H, W) uint8 disparities + (B, H, W, 3) uint8 guide [+ (B, H, W)
+    float32 participation weights, nonnegative] -> (B, H, W) uint8 medians
+    (0 where a pixel's total weight is 0). Launches the CUDA kernel for
+    CUDA tensors; CPU tensors take the plain version. A radius whose haloed
+    tile does not fit a block's shared memory raises."""
     if disp.dim() != 3 or guide_u8.shape != (*disp.shape, 3):
         raise ValueError(f"expected (B,H,W) disp and (B,H,W,3) guide, got "
                          f"{tuple(disp.shape)}, {tuple(guide_u8.shape)}")
@@ -70,12 +76,19 @@ def weighted_median(disp: torch.Tensor, guide_u8: torch.Tensor, radius: int = 9,
         raise ValueError(f"need 1 <= n_bins <= 256 and radius >= 0, got {n_bins}, {radius}")
     if disp.device != guide_u8.device:
         raise ValueError("disp and guide must be on one device")
+    if valid is not None:
+        if valid.shape != disp.shape or valid.dtype != torch.float32:
+            raise ValueError(f"valid must be float32 {tuple(disp.shape)}, got "
+                             f"{valid.dtype} {tuple(valid.shape)}")
+        if valid.device != disp.device:
+            raise ValueError("valid must be on the device of disp")
     if disp.device.type == "cpu":
-        return weighted_median_plain(disp, guide_u8, radius, n_bins, sigma)
+        return weighted_median_plain(disp, guide_u8, radius, n_bins, sigma, valid)
     if disp.device.type != "cuda":
         raise ValueError(f"unsupported device {disp.device}")
-    if not (disp.is_contiguous() and guide_u8.is_contiguous()):
-        raise ValueError("disp and guide must be contiguous")
+    if not (disp.is_contiguous() and guide_u8.is_contiguous()
+            and (valid is None or valid.is_contiguous())):
+        raise ValueError("disp, guide and valid must be contiguous")
     B, H, W = disp.shape
     sig_q = sigma / 256.0 * 64.0
     inv_two_sig2 = 1.0 / (2.0 * sig_q * sig_q)
@@ -83,13 +96,16 @@ def weighted_median(disp: torch.Tensor, guide_u8: torch.Tensor, radius: int = 9,
         raise ValueError(f"{B} views exceed one launch's grid")
     out = torch.empty_like(disp)
     wtab = torch.empty(N_DIST2, dtype=torch.float32, device=disp.device)
-    fn = _build.load("wmf")
-    rc = fn(disp.data_ptr(), guide_u8.data_ptr(), out.data_ptr(), wtab.data_ptr(), B, H, W,
-            radius, n_bins, ctypes.c_float(inv_two_sig2),
-            torch.cuda.current_stream(disp.device).cuda_stream)
+    stream = torch.cuda.current_stream(disp.device).cuda_stream
+    name = "wmf" if valid is None else "wmf_valid"
+    fn = _build.load(name)
+    planes = (disp.data_ptr(), guide_u8.data_ptr()) + (
+        () if valid is None else (valid.data_ptr(),))
+    rc = fn(*planes, out.data_ptr(), wtab.data_ptr(), B, H, W, radius, n_bins,
+            ctypes.c_float(inv_two_sig2), stream)
     if rc == -1:
         raise ValueError(f"the haloed {TILE_W}x{TILE_H} tile of radius {radius} needs more "
                          f"shared memory than the card gives a block")
-    _build.check("wmf", rc)
-    _build.LAUNCHES["wmf"] += 1
+    _build.check(name, rc)
+    _build.LAUNCHES[name] += 1
     return out

@@ -51,12 +51,15 @@ def _pair_cost_u8(a_img, b_img, a_grd, b_grd, alpha, tau1_us, tau2_us):
             + (1.0 - alpha) * grd.to(torch.float32)).to(torch.uint8)
 
 
-def _sampled(l_img, r_img, l_grd, r_grd, max_dis, yi, xi, pcost, border):
-    """Both volumes at the (yi, xi) grid: `pcost(a_img, b_img, a_grd,
-    b_grd)` per disparity, `border` for the other view's operands out of
-    range. Returns ((D, h, w), (D, h, w))."""
+def _sampled(l_img, r_img, l_grd, r_grd, n_dis, yi, xi, pcost, border, d_start=0):
+    """Both volumes at the (yi, xi) grid for the disparities [d_start,
+    d_start + n_dis): `pcost(a_img, b_img, a_grd, b_grd)` per disparity,
+    `border` for the other view's operands out of range. `d_start` is an
+    int or a 0-d integer tensor. Returns ((D, h, w), (D, h, w))."""
     H, W, _ = l_img.shape
     dev = l_img.device
+    if isinstance(d_start, torch.Tensor):
+        d_start = d_start.to(device=dev, dtype=torch.long)
     yi = torch.as_tensor(yi, dtype=torch.long, device=dev)
     xi = torch.as_tensor(xi, dtype=torch.long, device=dev)
 
@@ -74,8 +77,8 @@ def _sampled(l_img, r_img, l_grd, r_grd, max_dis, yi, xi, pcost, border):
 
     l_parts, r_parts = [], []
     xs = xi[None, None, :]                                       # (1, 1, w)
-    for d0 in range(0, max_dis, _D_CHUNK):
-        d = torch.arange(d0, min(d0 + _D_CHUNK, max_dis), device=dev)[:, None]  # (dc, 1)
+    for d0 in range(0, n_dis, _D_CHUNK):
+        d = (d_start + torch.arange(d0, min(d0 + _D_CHUNK, n_dis), device=dev))[:, None]
         dt = d[:, :, None]                                       # (dc, 1, 1)
         xb = (xi[None] - d).clamp(0, W - 1)
         rb, rgb = shifted(r_rows, rg_rows, xb)
@@ -128,6 +131,56 @@ def build_cost_volumes(
     dev = l_img.device
     return build_cost_volumes_sampled(
         l_img, r_img, l_grd, r_grd, max_dis, torch.arange(H, device=dev),
+        torch.arange(W, device=dev), alpha, border_cost, tau1, tau2)
+
+
+def build_cost_volume_block_sampled(
+    l_img: torch.Tensor,     # (H, W, 3) float32 (a row tile, possibly extended)
+    r_img: torch.Tensor,
+    l_grd: torch.Tensor,
+    r_grd: torch.Tensor,
+    d_start,                 # block offset: an int or a 0-d integer tensor
+    block: int,
+    max_dis: int,
+    yi,                      # (h,) row sample indices (tile-local)
+    xi,                      # (w,) column sample indices (global x grid)
+    alpha: float = 0.9,
+    border_cost: float = 1.0,
+    tau1: float | None = None,
+    tau2: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Disparity-sharded CVC at the FGF sample grid: only the disparities
+    [d_start, d_start + block) of `build_cost_volumes_sampled`, bitwise its
+    volumes sliced there. Returns ((block, h, w), (block, h, w)) float32."""
+    if isinstance(d_start, int) and not 0 <= d_start <= max_dis - block:
+        raise ValueError(f"block [{d_start}, {d_start + block}) outside [0, {max_dis})")
+
+    def pcost(a_img, b_img, a_grd, b_grd):
+        return _pair_cost(a_img, b_img, a_grd, b_grd, alpha, tau1, tau2)
+
+    return _sampled(l_img, r_img, l_grd, r_grd, block, yi, xi, pcost, border_cost, d_start)
+
+
+def build_cost_volume_block(
+    l_img: torch.Tensor,     # (H, W, 3) float32 in [0,1]
+    r_img: torch.Tensor,
+    l_grd: torch.Tensor,     # (H, W)
+    r_grd: torch.Tensor,
+    d_start,                 # block offset: an int or a 0-d integer tensor
+    block: int,
+    max_dis: int,
+    alpha: float = 0.9,
+    border_cost: float = 1.0,
+    tau1: float | None = None,
+    tau2: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Disparity-sharded CVC in full: the disparities [d_start, d_start +
+    block) of `build_cost_volumes`, bitwise its volumes sliced there.
+    Returns ((block, H, W), (block, H, W)) float32."""
+    H, W, _ = l_img.shape
+    dev = l_img.device
+    return build_cost_volume_block_sampled(
+        l_img, r_img, l_grd, r_grd, d_start, block, max_dis, torch.arange(H, device=dev),
         torch.arange(W, device=dev), alpha, border_cost, tau1, tau2)
 
 

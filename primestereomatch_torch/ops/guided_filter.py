@@ -11,16 +11,26 @@ engine (models/gif_pipeline.py::DispEst) builds it
 (`fast_guided_filter_color`), and `guided_filter_color` is the
 reference's full-resolution CVF.
 
+The row-tile ops (`fgf_tile_halo`, `fast_guided_filter_color_tile(_low)`,
+`fgf_wta_tile_low`) filter one row tile of a row-sharded image, extended
+by a halo each side (parallel/sharded.py); their interior rows equal the
+whole image's. The JAX ops' `global_h` is not needed: the edge flags and
+the tile's own rows place the global borders.
+
 Every expression keeps the JAX package's term order (ops/guided_filter.py
 there), which the CUDA kernels follow in turn.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from primestereomatch_torch.ops.boxfilter import box_mean
-from primestereomatch_torch.ops.resize import resize_bilinear, resize_nearest
+from primestereomatch_torch.ops.resize import linear_tables, resize_bilinear, resize_nearest
+from primestereomatch_torch.utils.device import device_table
 
 _FILTER_D_CHUNK = 16  # slices a full-resolution filter upsamples at once
 
@@ -181,3 +191,190 @@ def guided_filter_color(
     (a_r, a_g, a_b), b = _solve_ab(p, ch, means, inv, ksize)
     return (box_mean(a_r, ksize) * ch[0] + box_mean(a_g, ksize) * ch[1]
             + box_mean(a_b, ksize) * ch[2] + box_mean(b, ksize))
+
+
+# --- row tiles of a row-sharded image (parallel/sharded.py) ----------------
+
+
+@functools.lru_cache(maxsize=None)
+def tile_row_coeffs(hl: int, He: int, s: int, halo: int, is_top: bool,
+                    is_bot: bool) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """OpenCV INTER_LINEAR row taps of an extended tile of He rows over its
+    hl low-res rows, clamped at the GLOBAL borders: at the tile's local
+    rows halo/s (global low-res row 0) where `is_top` and hl-1-halo/s
+    (the last global one) where `is_bot`. The coordinates are float32, as
+    the JAX op computes them. Returns (low row, high row, f32 fraction)."""
+    hs = halo // s
+    Y = np.arange(He, dtype=np.float32)
+    fy = (Y + np.float32(0.5)) * np.float32(1.0 / s) - np.float32(0.5)
+    sy = np.floor(fy).astype(np.int64)
+    fr = fy - sy.astype(np.float32)
+    if is_top:
+        top = sy < hs
+        sy[top], fr[top] = hs, 0.0
+    last_local = hl - 1 - hs
+    if is_bot:
+        bot = sy >= last_local
+        sy[bot], fr[bot] = last_local, 0.0
+    sy = np.clip(sy, 0, hl - 1)
+    return sy, np.minimum(sy + 1, hl - 1), fr.astype(np.float32)
+
+
+def _upsample_tile(
+    t: torch.Tensor,         # (..., hl, wl) low-res rows of an EXTENDED tile
+    out_hw: tuple[int, int],
+    s: int,
+    halo: int,               # full-res halo rows on each side of the tile
+    is_top: bool,            # this tile touches the global top
+    is_bot: bool,            # this tile touches the global bottom
+    rows: tuple[int, int] | None = None,   # (first, count) of the output rows kept
+) -> torch.Tensor:
+    """Bilinear upsample of a row tile with OpenCV's INTER_LINEAR clamp at
+    the GLOBAL image borders, not the tile's (`tile_row_coeffs`). The
+    tile's low-res rows lie on the global grid (halo and the tile's offset
+    are multiples of s). Columns are not sharded: the global
+    coefficients. `rows` keeps only those output rows,
+    each as the whole tile computes it. Returns (..., n rows, W)."""
+    hl, wl = t.shape[-2:]
+    He, W = out_hw
+    r0, nr = rows if rows is not None else (0, He)
+    coeffs = tile_row_coeffs(hl, He, s, halo, bool(is_top), bool(is_bot))
+    key = ("tile_rows", hl, He, s, halo, bool(is_top), bool(is_bot), r0, nr)
+    sy, sy1, fr = (device_table(key + (i,), lambda i=i: coeffs[i][r0:r0 + nr], t.device,
+                                torch.float32 if i == 2 else torch.long) for i in range(3))
+    fr = fr[:, None]
+    ry = t.index_select(-2, sy) * (1.0 - fr) + t.index_select(-2, sy1) * fr
+    x0, x1, xf = linear_tables(wl, W, t.device)
+    return ry.index_select(-1, x0) * (1.0 - xf) + ry.index_select(-1, x1) * xf
+
+
+def fgf_tile_halo(radius: int, subsample: int) -> int:
+    """Full-res halo rows each side that an exact FGF on a row tile needs:
+    two box passes of radius k//2 at low res and one low row of bilinear
+    support, in whole multiples of s."""
+    k = 2 * (radius // subsample) + 1
+    return subsample * (2 * (k // 2) + 2)
+
+
+def tile_low_maps(guide_ext: torch.Tensor, p_low: torch.Tensor, k: int,
+                  eps: float) -> torch.Tensor:
+    """The low-res chain of an extended tile: (..., He, W, 3) guide +
+    (..., D, He/s, W/s) costs -> (..., 4, D, h, w) box-averaged [a_r, a_g,
+    a_b, b]. The guide statistics of the tile (`guide_stats`), then the
+    low-maps kernel K1, which takes `low_maps_from_stats` for CPU tensors;
+    the box borders are the tile's reflect-101, which the halo keeps out of
+    its interior."""
+    from primestereomatch_torch.kernels.lowmaps import low_maps   # kernels import this module
+
+    lead = p_low.shape[:-3]
+    D, h, w = p_low.shape[-3:]
+    stats = guide_stats(guide_ext, (h, w), k, eps).reshape(-1, 12, h, w).contiguous()
+    maps = low_maps(p_low.reshape(-1, D, h, w).contiguous(), stats, k)
+    return maps.reshape(*lead, 4, D, h, w)
+
+
+def _check_tile(He: int, W: int, s: int, halo: int) -> None:
+    if He % s or W % s or halo % s:
+        raise ValueError(f"tile dims must be multiples of s={s}: {He}x{W}, halo={halo}")
+
+
+def fast_guided_filter_color_tile(
+    guide_ext: torch.Tensor,   # (..., He, W, 3) row tile EXTENDED by halo each side
+    p_ext: torch.Tensor,       # (..., D, He, W) cost block on the extended tile
+    radius: int,
+    eps: float,
+    subsample: int,
+    halo: int,                 # = fgf_tile_halo(radius, subsample)
+    is_top: bool,
+    is_bot: bool,
+) -> torch.Tensor:
+    """FGF on one row tile of a row-sharded image; returns the filtered
+    EXTENDED tile, whose rows [halo, halo + tile rows) equal the
+    unsharded `fast_guided_filter_color`'s. With the tile's offset, halo,
+    H and W multiples of s the tile's nearest grid is the global one,
+    s-row block-reflect-101 halos at the global edges downsample to the
+    global low-res reflect-101, and `_upsample_tile` clamps at the global
+    borders."""
+    s = subsample
+    He, W = p_ext.shape[-2:]
+    _check_tile(He, W, s, halo)
+    p_low = resize_nearest(p_ext, (He // s, W // s))
+    return fast_guided_filter_color_tile_low(guide_ext, p_low, radius, eps, subsample, halo,
+                                             is_top, is_bot)
+
+
+def fast_guided_filter_color_tile_low(
+    guide_ext: torch.Tensor,   # (..., He, W, 3) extended row tile
+    p_low: torch.Tensor,       # (..., D, He/s, W/s) cost block at the sample grid
+    radius: int,
+    eps: float,
+    subsample: int,
+    halo: int,
+    is_top: bool,
+    is_bot: bool,
+) -> torch.Tensor:
+    """Tile FGF from the already-subsampled cost block (the tile analog
+    of `fast_guided_filter_color_low`, paired with
+    ops/cost_volume.py::build_cost_volume_block_sampled). Returns
+    (..., D, He, W)."""
+    He, W = guide_ext.shape[-3:-1]
+    s = subsample
+    _check_tile(He, W, s, halo)
+    k = 2 * (radius // s) + 1
+    maps = tile_low_maps(guide_ext, p_low, k, eps)
+    up = [_upsample_tile(maps[..., i, :, :, :], (He, W), s, halo, is_top, is_bot)
+          for i in range(4)]
+    ch = [guide_ext[..., c].unsqueeze(-3) for c in range(3)]
+    return up[0] * ch[0] + up[1] * ch[1] + up[2] * ch[2] + up[3]
+
+
+def fgf_wta_tile_low(
+    guide_ext: torch.Tensor,   # (..., He, W, 3) extended row tile
+    p_low: torch.Tensor,       # (..., Db, He/s, W/s) LOCAL d block at the sample grid
+    radius: int,
+    eps: float,
+    subsample: int,
+    halo: int,
+    is_top: bool,
+    is_bot: bool,
+    d0: int,                   # global disparity of p_low's first slice
+    interior: tuple[int, int], # (first row, rows) of the extended tile kept
+    d_chunk: int = 16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused tile FGF + upsample + local WTA over a d block (the tile
+    analog of `fgf_wta_low_maps`): q = up(a_r)*I0 + up(a_g)*I1 +
+    up(a_b)*I2 + up(b) on the interior rows, folded over chunks of
+    `d_chunk` disparities into a running (min, argmin) with a strict `<`,
+    so ties keep the lowest disparity; global d = 0 never wins (the
+    reference's WTA starts at 1). The filtered tile never exists. Plain
+    torch after the chain (K1). Returns (min f32, global argmin int32),
+    each (..., interior rows, W)."""
+    He, W = guide_ext.shape[-3:-1]
+    s = subsample
+    _check_tile(He, W, s, halo)
+    maps = tile_low_maps(guide_ext, p_low, 2 * (radius // s) + 1, eps)
+    Db = maps.shape[-3]
+    if Db % d_chunk:
+        d_chunk = Db
+    r0, nr = interior
+    lead = maps.shape[:-4]
+    ch = [guide_ext[..., r0:r0 + nr, :, c].unsqueeze(-3) for c in range(3)]
+
+    def up(t):
+        return _upsample_tile(t, (He, W), s, halo, is_top, is_bot, (r0, nr))
+
+    best = torch.full((*lead, nr, W), float("inf"), device=maps.device)
+    arg = torch.zeros((*lead, nr, W), dtype=torch.int32, device=maps.device)
+    for dl in range(0, Db, d_chunk):
+        blk = maps[..., dl:dl + d_chunk, :, :]
+        q = up(blk[..., 0, :, :, :]) * ch[0]
+        q = q + up(blk[..., 1, :, :, :]) * ch[1]
+        q = q + up(blk[..., 2, :, :, :]) * ch[2]
+        q = q + up(blk[..., 3, :, :, :])
+        if d0 + dl == 0:
+            q[..., 0, :, :] = float("inf")
+        c_min, c_arg = q.min(dim=-3)                 # first minimum on ties
+        take = c_min < best
+        best = torch.where(take, c_min, best)
+        arg = torch.where(take, (c_arg + (d0 + dl)).to(torch.int32), arg)
+    return best, arg

@@ -208,9 +208,10 @@ def joint_wmf_float(
     map the median levels back. Returns (H, W) float32 on the device of
     `disp_f32` if it is a tensor, else on `device` (default: the card).
 
-    Exact mode with at most 256 levels and no `valid` mask goes through the
-    JointWMF kernel (K3: `kernels.weighted_median`, which takes its plain
-    version for CPU tensors); table mode and `valid` take the plain op."""
+    Exact mode with at most 256 levels goes through the JointWMF kernel
+    (K3: `kernels.weighted_median`, its participation-weight mode with
+    `valid`; CPU tensors take its plain version); table mode takes the
+    plain op."""
     from primestereomatch_torch.kernels.wmf import weighted_median  # kernels import this module
 
     if isinstance(disp_f32, torch.Tensor):
@@ -222,11 +223,13 @@ def joint_wmf_float(
     idx, mapping, _ = from32f_to_32s(host, n_levels)
     idx_t = torch.as_tensor(idx, device=dev)
     guide = None if guide_u8 is None else torch.as_tensor(guide_u8, device=dev)
-    if findex is None and valid is None and n_levels <= 256:
+    if findex is None and n_levels <= 256:
         if guide is None:
             raise ValueError("'exact' mode needs guide_u8")
+        v = None if valid is None else torch.as_tensor(
+            valid, dtype=torch.float32, device=dev)[None].contiguous()
         med = weighted_median(idx_t.to(torch.uint8)[None].contiguous(),
-                              guide[None].contiguous(), radius, n_levels, sigma)[0]
+                              guide[None].contiguous(), radius, n_levels, sigma, valid=v)[0]
     else:
         med = joint_wmf(idx_t, guide, radius=radius, n_bins=n_levels, sigma=sigma,
                         findex=findex, wmap=wmap, valid=valid)

@@ -710,9 +710,10 @@ def test_variant_forward_on_card_matches_cpu(dev, variant):
 
 
 def test_joint_wmf_float_goes_through_k3(dev):
-    """Exact mode with at most 256 levels launches K3 once, bitwise its
-    plain version (the same call with a mask of ones takes the plain op)."""
-    from primestereomatch_torch.ops.jointwmf import joint_wmf_float
+    """Exact mode with at most 256 levels launches K3, bitwise its plain
+    version; with a participation plane (here of ones) it launches K3's
+    valid mode: two K3 launches, equal results."""
+    from primestereomatch_torch.ops.jointwmf import joint_wmf, joint_wmf_float
 
     rng = np.random.default_rng(6)
     disp = torch.as_tensor((rng.random((40, 70)) * 30.0).astype(np.float32), device=dev)
@@ -720,10 +721,15 @@ def test_joint_wmf_float_goes_through_k3(dev):
     K.reset_launches()
     got = joint_wmf_float(disp, guide, radius=5, n_levels=64)
     assert K.LAUNCHES["wmf"] == 1 and got.device.type == "cuda"
-    plain = joint_wmf_float(disp, guide, radius=5, n_levels=64,
-                            valid=torch.ones(40, 70, device=dev))
-    assert K.LAUNCHES["wmf"] == 1
-    assert torch.equal(got, plain)
+    ones = joint_wmf_float(disp, guide, radius=5, n_levels=64,
+                           valid=torch.ones(40, 70, device=dev))
+    assert K.LAUNCHES["wmf"] == 1 and K.LAUNCHES["wmf_valid"] == 1
+    assert torch.equal(got, ones)
+    # the plain op on the same levels
+    from primestereomatch_torch.ops.jointwmf import from32f_to_32s
+    idx, mapping, _ = from32f_to_32s(disp.cpu().numpy(), 64)
+    med = joint_wmf(torch.as_tensor(idx, device=dev), guide, radius=5, n_bins=64)
+    assert torch.equal(got, torch.as_tensor(mapping, device=dev)[med.long()])
 
 
 def test_dispest_stages_on_card_match_cpu(dev, tmp_path):
@@ -852,3 +858,117 @@ def test_app_stream_equals_compute_on_card(dev, calib_dir):
             np.testing.assert_array_equal(g, w)
     if calib_dir:
         assert streamed[0].left_bgr.shape == (156, 304, 3)
+
+
+def _valid_plane(kind: str, shape, r: int, rng) -> np.ndarray:
+    """A participation plane: 'zero_halos' (0 on r rows at both ends: the
+    global edges of a row tile), 'fractional' (uniform in [0, 1)) or
+    'zero_windows' (64 x 64 blocks of zeros, whole windows with no weight,
+    on a fractional plane)."""
+    v = np.ones(shape, np.float32)
+    if kind == "zero_halos":
+        v[:, :r] = 0.0
+        v[:, -r:] = 0.0
+    else:
+        v = rng.random(shape, dtype=np.float32)
+        if kind == "zero_windows":
+            v[:, 100:164, 200:264] = 0.0
+            v[:, -64:, :64] = 0.0
+    return v
+
+
+# the extended JointWMF tiles of the sharded phase of chip_smoke.py at 2K
+# (2 frames a rank, r = 9): y = 2, y = 4, y = 1 (d only), and b = 2
+WMF_TILES = [(4, 624 + 18, 2208), (4, 312 + 18, 2208), (4, 1248 + 18, 2208),
+             (2, 624 + 18, 2208)]
+
+
+@pytest.mark.parametrize("kind", ["zero_halos", "fractional", "zero_windows"])
+@pytest.mark.parametrize("shape", WMF_TILES, ids=lambda s: "x".join(map(str, s)))
+def test_weighted_median_valid_mode_is_bitwise_plain(dev, shape, kind):
+    """K3's participation-weight mode: 0 pixels apart from its plain
+    version (the plain JointWMF with `valid`, view by view) at the sharded
+    tiles' shapes; 0 where a whole window has no weight."""
+    rng = np.random.default_rng(shape[1] + len(kind))
+    r, n_bins = 9, 256
+    disp = torch.as_tensor(rng.integers(0, n_bins, shape, dtype=np.uint8), device=dev)
+    guide = _wmf_guide(dev, shape, n_bins)
+    valid = torch.as_tensor(_valid_plane(kind, shape, r, rng), device=dev)
+    K.reset_launches()
+    got = K.weighted_median(disp, guide, r, n_bins, 25.5, valid=valid)
+    assert K.LAUNCHES["wmf_valid"] == 1 and K.LAUNCHES["wmf"] == 0
+    assert torch.equal(got, K.weighted_median_plain(disp, guide, r, n_bins, 25.5, valid))
+    if kind == "zero_windows":
+        assert int(got[:, 100 + r:164 - r, 200 + r:264 - r].max()) == 0
+
+
+def test_weighted_median_valid_ones_equals_the_valid_less_kernel(dev):
+    shape = (2, 75, 130)
+    rng = np.random.default_rng(3)
+    disp = torch.as_tensor(rng.integers(0, 64, shape, dtype=np.uint8), device=dev)
+    guide = _wmf_guide(dev, shape, 64)
+    ones = torch.ones(shape, dtype=torch.float32, device=dev)
+    assert torch.equal(K.weighted_median(disp, guide, 9, 64, 25.5, valid=ones),
+                       K.weighted_median(disp, guide, 9, 64, 25.5))
+
+
+def _sharded_pair(B, H, W, seed=0):
+    rng = np.random.default_rng(seed)
+    left = rng.random((B, H, W, 3), dtype=np.float32)
+    right = np.roll(left, -3, axis=2) * 0.9 + 0.1 * rng.random((B, H, W, 3), dtype=np.float32)
+    return left, right.astype(np.float32)
+
+
+def test_world_one_nccl_sharded_steps_are_the_direct_pipeline(dev):
+    """The one-card deployment: a world of 1 rank under NCCL, mesh
+    (1, 1, 1); the sharded GIF step (K4, K2, K3) and SGBM step (K6-K9) on 2
+    frames bitwise the direct pipelines."""
+    import socket
+
+    import torch.distributed as dist
+
+    from primestereomatch_torch import SGBMConfig, stereo_sgbm_forward
+    from primestereomatch_torch.parallel import (MeshPlan, make_mesh, make_sharded_gif,
+                                                 make_sharded_sgbm)
+    from primestereomatch_torch.parallel.launch import initialize
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    assert initialize(f"localhost:{port}", 1, 0) == "nccl"
+    try:
+        mesh = make_mesh(MeshPlan(1, 1, 1))
+        cfg = GIFConfig(max_dis=32, med_sz=9)
+        l, r = _sharded_pair(2, 96, 160)
+        K.reset_launches()
+        lo, ro, (bsl, rows) = make_sharded_gif(mesh, cfg)(l, r)
+        assert {k for k, v in K.LAUNCHES.items() if v} == {"cvc_lowmaps", "wta", "wmf"}
+        assert (bsl, rows) == (slice(0, 2), slice(0, 96))
+        for i in range(2):
+            want = stereo_gif_forward(l[i], r[i], cfg)
+            assert torch.equal(lo[i], want[0]) and torch.equal(ro[i], want[1])
+        lu = np.clip(np.rint(l * 255), 0, 255).astype(np.uint8)
+        ru = np.clip(np.rint(r * 255), 0, 255).astype(np.uint8)
+        scfg = SGBMConfig(num_disparities=32)
+        K.reset_launches()
+        out, _ = make_sharded_sgbm(mesh, scfg)(lu, ru)
+        assert {k for k, v in K.LAUNCHES.items() if v} == {"bt_cost", "sgbm_scan", "select",
+                                                          "speckle"}
+        for i in range(2):
+            assert torch.equal(out[i], stereo_sgbm_forward(lu[i], ru[i], scfg))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mesh_shape", ["1,2,2", "2,2,1"])
+def test_spawn_local_on_the_card(dev, mesh_shape):
+    """Four ranks sharing the card under gloo (host-staged collectives),
+    every block bitwise the single-device pipeline on the card."""
+    import socket
+
+    from primestereomatch_torch.parallel.launch import spawn_local
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    assert spawn_local(4, port=port, mesh_shape=mesh_shape, check=True, timeout=300) == 0
