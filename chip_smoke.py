@@ -135,10 +135,12 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      D = 256. K1 against its plain version at one rank's extended tile of
      each tiled mesh, and K4, K2, K3 at the 2-frame batch (4 views); K3's
      valid mode against its plain version at the tiled meshes' JointWMF
-     tiles (a
-     zero-halo tile of the card's output, a fractional plane, whole windows
-     of zeros; 0 pixels required), its ms beside the valid-less kernel's at
-     the same shape, and the valid-less 2K time against PERF.md's;
+     tiles (a zero-halo tile of the card's output and a plane of ones, a
+     fractional plane, whole windows of zeros, unit blocks mixed with
+     fractional ones; 0 pixels required), the share of its blocks on the
+     unit path, its ms on three planes beside the valid-less kernel's on
+     the same input, both entries' blocks an SM, and the valid-less 2K
+     time against PERF.md's;
  10. one JSON line listing the ten TPU kernels' ports (K5 as its own row,
      `wta_generic`: K2's source's per-pixel kernel, launched by the
      subsample=1 path) and K3's valid mode as its own row (`wmf_valid`),
@@ -1828,7 +1830,8 @@ WMF_TILES = {"y2": (4, 624 + 18, W2K), "y4": (4, 312 + 18, W2K), "y1": (4, 1248 
 def bound_wmf_valid(disp: torch.Tensor, out: torch.Tensor, valid: torch.Tensor, radius: int,
                     n_bins: int):
     """`bound_wmf` with a participation plane: only neighbours of nonzero
-    weight take work (this run's data), one multiply more a pair, and the
+    weight take work (this run's data), one multiply more a pair where the
+    weight is neither 0 nor 1 (times 1 a weight is itself), and the
     plane's 4 bytes a pixel read."""
     B, H, W = disp.shape
 
@@ -1836,10 +1839,12 @@ def bound_wmf_valid(disp: torch.Tensor, out: torch.Tensor, valid: torch.Tensor, 
         i = np.arange(n)
         return (np.minimum(i + radius, n - 1) - np.maximum(i - radius, 0) + 1).astype(np.float64)
 
-    taking = (valid != 0).double().sum(dim=0).cpu().numpy()   # (H, W), over the views
-    pairs = float(cover(H) @ taking @ cover(W))
+    def pairs(at):   # window pairs whose neighbour is `at` (B, H, W), summed
+        return float(cover(H) @ at.double().sum(dim=0).cpu().numpy() @ cover(W))
+
     scan = B * H * W * n_bins + 2 * int(out.to(torch.int64).add(1).sum())
-    return bound(9 * B * H * W, 12 * pairs + scan)
+    return bound(9 * B * H * W, 11 * pairs(valid != 0) + pairs((valid != 0) & (valid != 1))
+                 + scan)
 
 
 def sharded_frames():
@@ -1933,61 +1938,105 @@ def _assemble(ranks: list, key: str, B: int) -> list:
     return outs
 
 
+# single values near 1 (and -0) that a unit tile of the `mixed` plane holds
+NEAR_ONE = (0.99999994, 1.0000001, -0.0)
+WMF_PLANES = ("zero_halos", "ones", "fractional", "zero_windows", "mixed")
+
+
+def wmf_valid_planes(dev, ref_disp: torch.Tensor, guide_u8: torch.Tensor, shape, r: int,
+                     n_bins: int, rng) -> dict:
+    """K3 valid mode's inputs at a (views, rows, cols) tile: kind -> (disp,
+    guide, plane). 'zero_halos': a top tile of `ref_disp` (r zero rows
+    above, its rows and the r real rows below; zero rows below too where the
+    tile is the whole frame), the plane 0 on the zero rows, as the mesh
+    makes it; 'ones': the same with a plane of ones; on random disparities
+    over all bins: 'fractional' (uniform in [0, 1)), 'zero_windows' (that
+    with whole 64x64 windows of zeros, output 0 there) and 'mixed' (the
+    zero-halo plane with 128x128 squares of fractions on a checkerboard, unit
+    blocks beside fractional ones, and single NEAR_ONE values in unit
+    areas)."""
+    B, He, W = shape
+    pick = torch.arange(B, device=dev) % ref_disp.shape[0]
+    body, g_body = ref_disp[pick, :He - r], guide_u8[pick, :He - r]
+    n_bot = He - r - body.shape[1]
+    top = torch.nn.functional.pad(body, (0, 0, r, n_bot)).contiguous()
+    g_top = torch.nn.functional.pad(g_body, (0, 0, 0, 0, r, n_bot)).contiguous()
+    v_top = torch.ones((B, He, W), dtype=torch.float32, device=dev)
+    v_top[:, :r] = 0.0
+    v_top[:, He - n_bot:] = 0.0
+    rnd = torch.as_tensor(rng.integers(0, n_bins, (B, He, W), dtype=np.uint8), device=dev)
+    frac = torch.as_tensor(rng.random((B, He, W), dtype=np.float32), device=dev)
+    holes = frac.clone()
+    holes[:, 100:164, 200:264] = 0.0
+    holes[:, -64:, :64] = 0.0
+    mixed = v_top.clone()
+    yy, xx = np.meshgrid(np.arange(He) // 128, np.arange(W) // 128, indexing="ij")
+    square = torch.as_tensor((yy + xx) % 2 == 1, device=dev).expand(B, He, W).contiguous()
+    mixed[square] = frac[square]
+    for value in NEAR_ONE:
+        n = 40 * B
+        at = (rng.integers(0, B, n), rng.integers(r, He - r, n), rng.integers(0, W, n))
+        keep = ~square[at].cpu().numpy()
+        mixed[tuple(torch.as_tensor(a[keep], device=dev) for a in at)] = value
+    return {"zero_halos": (top, g_top, v_top), "ones": (top, g_top, torch.ones_like(v_top)),
+            "fractional": (rnd, g_top, frac), "zero_windows": (rnd, g_top, holes),
+            "mixed": (rnd, g_top, mixed)}
+
+
 def wmf_valid_parity(dev, smi: str, ref_disp: torch.Tensor, guide_u8: torch.Tensor, r: int,
                      n_bins: int, sig: float) -> dict:
     """K3's participation-weight mode against its plain version at the
-    tiled meshes' JointWMF tiles (WMF_TILES): a top tile of the card's 2K
-    output with zero halo rows (the participation plane 0 there, as the
-    mesh makes it), a fractional plane on random disparities, and one with
-    whole 64x64 windows of zeros (output 0 there); 0 differing pixels
-    required. Times at each tile: the valid mode and the valid-less kernel
-    on the zero-halo input, the plain version once."""
+    tiled meshes' JointWMF tiles (WMF_TILES), on every plane of
+    wmf_valid_planes: 0 differing pixels required, 0 in the empty windows.
+    The share of blocks that take the unit path (kernels/wmf.py::
+    unit_plane_blocks) a plane. Times at each tile: the valid mode on the
+    zero-halo, fractional and all-ones planes, the valid-less kernel on the
+    same disparities and guide, the plain version once, and both entries'
+    passes over the window offsets a block (bin_window_passes); blocks an
+    SM of both entries."""
     rng = np.random.default_rng(13)
-    rep: dict = {}
-    for tname, (B, He, W) in WMF_TILES.items():
-        # a top tile: r zero rows above, its rows and the r real rows below
-        # (zero rows below too where the tile is the whole frame)
-        pick = torch.arange(B, device=dev) % ref_disp.shape[0]
-        body, g_body = ref_disp[pick, :He - r], guide_u8[pick, :He - r]
-        n_bot = He - r - body.shape[1]
-        top = torch.nn.functional.pad(body, (0, 0, r, n_bot)).contiguous()
-        g_top = torch.nn.functional.pad(g_body, (0, 0, 0, 0, r, n_bot)).contiguous()
-        v_top = torch.ones((B, He, W), dtype=torch.float32, device=dev)
-        v_top[:, :r] = 0.0
-        v_top[:, He - n_bot:] = 0.0
-        rnd = torch.as_tensor(rng.integers(0, n_bins, (B, He, W), dtype=np.uint8), device=dev)
-        frac = torch.as_tensor(rng.random((B, He, W), dtype=np.float32), device=dev)
-        holes = frac.clone()
-        holes[:, 100:164, 200:264] = 0.0
-        holes[:, -64:, :64] = 0.0
-        row: dict = {"shape": [B, He, W]}
-        for kind, (d, g, v) in {"zero_halos": (top, g_top, v_top),
-                                "fractional": (rnd, g_top, frac),
-                                "zero_windows": (rnd, g_top, holes)}.items():
+    rep: dict = {"blocks_per_sm": {"valid": K.wmf.blocks_per_sm(True, r),
+                                   "valid_less": K.wmf.blocks_per_sm(False, r)}}
+    log(f"wmf_valid blocks an SM at r = {r}: valid mode {rep['blocks_per_sm']['valid']}, "
+        f"valid-less {rep['blocks_per_sm']['valid_less']}; {smi}")
+    for tname, shape in WMF_TILES.items():
+        planes = wmf_valid_planes(dev, ref_disp, guide_u8, shape, r, n_bins, rng)
+        row: dict = {"shape": list(shape)}
+        for kind, (d, g, v) in planes.items():
             plain, plain_ms = timed_once(lambda: K.weighted_median_plain(d, g, r, n_bins, sig, v))
             got = K.weighted_median(d, g, r, n_bins, sig, valid=v)
             diff = (got.int() - plain.int()).abs()
+            unit = float(K.wmf.unit_plane_blocks(v, r).double().mean())
             row[kind] = {"n_differ": int((diff > 0).sum()), "max_abs_err": int(diff.max()),
-                         "plain_ms_once": plain_ms}
+                         "plain_ms_once": plain_ms, "unit_block_share": unit}
             if kind == "zero_windows":
                 row[kind]["max_in_empty_window"] = int(got[:, 100 + r:164 - r,
                                                            200 + r:264 - r].max())
             log(f"parity wmf_valid {tname} {tuple(d.shape)} {kind}: {row[kind]['n_differ']} px "
-                f"differ (0 required), max|diff| {row[kind]['max_abs_err']}")
+                f"differ (0 required), max|diff| {row[kind]['max_abs_err']}, {unit:.1%} of "
+                f"blocks on the unit path")
             if row[kind]["n_differ"] or row[kind].get("max_in_empty_window", 0):
                 raise AssertionError(f"wmf_valid {tname} {kind} is not bitwise its plain version")
-            if kind == "zero_halos":
+            if kind in ("zero_halos", "fractional", "ones"):
                 b_ms, b_by = bound_wmf_valid(d, plain, v, r, n_bins)
-                row.update(ms=cuda_ms(lambda: K.weighted_median(d, g, r, n_bins, sig, valid=v)),
-                           valid_less_ms=cuda_ms(lambda: K.weighted_median(d, g, r, n_bins, sig)),
-                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        row["max_abs_err"] = max(row[k]["max_abs_err"] for k in ("zero_halos", "fractional",
-                                                                 "zero_windows"))
-        log(f"time wmf_valid {tname} {tuple(top.shape)} (zero halos): valid mode "
-            f"{row['ms']:.4f} ms, "
-            f"valid-less {row['valid_less_ms']:.4f} ms at the same shape, plain "
-            f"{row['plain_ms']:.4f} ms (one run), bound {row['bound_ms']:.5f} ms "
-            f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} of bound; {smi}")
+                row[kind].update(
+                    ms=cuda_ms(lambda: K.weighted_median(d, g, r, n_bins, sig, valid=v)),
+                    valid_less_ms=cuda_ms(lambda: K.weighted_median(d, g, r, n_bins, sig)),
+                    bound_ms=b_ms, bound_by=b_by)
+                row[kind]["ratio"] = row[kind]["ms"] / row[kind]["valid_less_ms"]
+                row[kind]["passes_per_block"] = [
+                    float(K.wmf.bin_window_passes(d, r, n_bins, valid).double().mean())
+                    for valid in (v, None)]
+                log(f"time wmf_valid {tname} {tuple(d.shape)} {kind}: valid mode "
+                    f"{row[kind]['ms']:.4f} ms, valid-less {row[kind]['valid_less_ms']:.4f} ms "
+                    f"on the same input ({row[kind]['ratio']:.3f}x; passes a block "
+                    f"{row[kind]['passes_per_block'][0]:.3f} / "
+                    f"{row[kind]['passes_per_block'][1]:.3f}), bound {b_ms:.5f} ms "
+                    f"({b_by}), {b_ms / row[kind]['ms']:.1%} of bound; {smi}")
+        zh = row["zero_halos"]
+        row.update(ms=zh["ms"], valid_less_ms=zh["valid_less_ms"], plain_ms=zh["plain_ms_once"],
+                   bound_ms=zh["bound_ms"], bound_by=zh["bound_by"],
+                   max_abs_err=max(row[k]["max_abs_err"] for k in planes))
         rep[tname] = row
     return rep
 
@@ -2636,24 +2685,31 @@ def run(tables: dict) -> int:
         "mismatch": g.get("mismatch", g["n_differ"] / g["n"])})
     # K3's participation-weight mode: its own entry of csrc/wmf.cu, on the
     # tiled meshes' path; timed at the (1, 2, 2) mesh's JointWMF tile
-    wv = shard["wmf_valid"]
+    wv = dict(shard["wmf_valid"])
+    occupancy = wv.pop("blocks_per_sm")
     t = wv["y2"]
     rows.append({
         "name": "wmf_valid", "route": "cuda", "source": "primestereomatch_torch/csrc/wmf.cu",
         "replaces": TPU_KERNEL["wmf_valid"], "launches": shard_launches["wmf_valid"],
         **{key: t[key] for key in timed}, "library_ms": None,
         "at": f"{t['shape'][0]}x{t['shape'][1]}x{t['shape'][2]} zero-halo tile of mesh (1,2,2)",
-        "valid_less_ms_same_shape": t["valid_less_ms"],
-        "at_tiles": {n: {key: wv[n][key] for key in timed + ("shape", "valid_less_ms")}
-                     for n in wv},
-        "n_differ": {n: {k: wv[n][k]["n_differ"] for k in ("zero_halos", "fractional",
-                                                           "zero_windows")} for n in wv},
+        "share_of_bound": t["bound_ms"] / t["ms"],
+        "valid_less_ms_same_shape": t["valid_less_ms"], "blocks_per_sm": occupancy,
+        "at_tiles": {n: {"shape": wv[n]["shape"],
+                         **{k: {key: wv[n][k][key] for key in
+                                ("ms", "valid_less_ms", "ratio", "bound_ms", "unit_block_share",
+                                 "passes_per_block")}
+                            for k in ("zero_halos", "fractional", "ones")}} for n in wv},
+        "n_differ": {n: {k: wv[n][k]["n_differ"] for k in WMF_PLANES} for n in wv},
+        "unit_block_share": {n: {k: wv[n][k]["unit_block_share"] for k in WMF_PLANES}
+                             for n in wv},
         "launches_sharded": {p: c.get("wmf_valid", 0) for p, c in shard["launches"].items()},
     })
     k3_2k = report["2k"]["wmf"]["ms"]
     log(f"K3 valid-less at 2K {k3_2k:.4f} ms in this run ({k3_2k / 2.8711 - 1:+.1%} against "
-        f"PERF.md's 2.8711 ms); valid mode {t['ms']:.4f} against valid-less "
-        f"{t['valid_less_ms']:.4f} ms at the tile {t['shape']}; {smi}")
+        f"PERF.md's 2.8711 ms); valid mode {t['ms']:.4f} ms against "
+        f"valid-less {t['valid_less_ms']:.4f} ms at the tile {t['shape']}, "
+        f"{t['bound_ms'] / t['ms']:.1%} of bound; {smi}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({

@@ -43,11 +43,12 @@
 //     dmax. Sweep A takes the windows in order: one pass over the offsets
 //     adds those whose d falls in the window, then the running cumulative
 //     sum cum_k = fl(cum_{k-1} + h_k) goes on through the window's bins
-//     and its value at the window's end is kept. After the last window
-//     cum is the plain version's total, bit for bit. Sweep B sums again
-//     the one window in which cum crosses half the total (unless it is
-//     the last one, whose sums are still there) and walks it from the kept
-//     cum of the window before. With one window there is no sweep B.
+//     and its value at the window's end is kept in a register. After the
+//     last window cum is the plain version's total, bit for bit. Sweep B
+//     sums again the one window in which cum crosses half the total
+//     (unless it is the last one, whose sums are still there) and walks
+//     it from the kept cum of the window before. With one window there is
+//     no sweep B.
 //     Adding the same weights to a bin in the same order gives the same
 //     bits, so the medians equal the plain version's at every pixel.
 //
@@ -55,16 +56,25 @@
 // row-sharded pipeline's zero halos; entry psm_joint_wmf_valid): every
 // window weight is multiplied by a float32 plane valid[q] of nonnegative
 // weights, w = wtab[dist2] * valid[q], and the output is 0 where the total
-// is 0. The block stages the plane's haloed tile in shared memory beside
-// the words; a neighbour with valid == 0 is staged as NO_D (its product
-// would add +0.0, which changes no bin's bits) and stays out of [dmin,
-// dmax]. Here the table holds the unflushed expf and the product is
-// flushed instead: the plain version's scatter_add_ flushes the subnormal
-// products, whatever the factors. The mode is a template flag: the
-// valid-less kernel is compiled as before.
+// is 0. The plain version's scatter_add_ flushes the subnormal products,
+// whatever the factors, so the product is flushed, from a second table of
+// the unflushed expf. A neighbour with valid == 0 (-0 too) is staged as
+// NO_D: its product would add +0.0, which changes no bin's bits.
+// What costs here is residency, not the multiply: the block also stages
+// the plane's haloed tile, and the window ends' cums are kept in registers
+// (not shared memory) so that 3 blocks still fit an SM, as in the
+// valid-less mode. The driven planes are 0 or 1 everywhere (the mesh's
+// zero halo rows): times 1.0f a weight is itself, and flushing it gives
+// the flushed table's entry. So the staging loop also tests every plane
+// value of the haloed tile for exactly 0 or 1, the barrier after it ANDs
+// the test over the block, and such a block runs the valid-less inner
+// loop on the flushed table; any other value (0.99999994f, a subnormal,
+// NaN) sends its block to the multiply-and-flush loop. The choice is the
+// block's, on the card: the wrapper never reads the plane.
 //
 // Layout: disp (B, H, W) uint8, guide (B, H, W, 3) uint8, valid (B, H, W)
-// float32 (valid mode), out (B, H, W) uint8, wtab (N_DIST2) float scratch.
+// float32 (valid mode), out (B, H, W) uint8, wtab float scratch: N_DIST2
+// flushed entries, then (valid mode) N_DIST2 unflushed ones.
 // Grid (ceil(W/TW), ceil(H/TH), B).
 
 #include <cfloat>
@@ -97,23 +107,25 @@ constexpr unsigned NO_D = 1023;            // in no bin window
 constexpr unsigned CMASK = 0x003f3f3fu;
 constexpr unsigned FULL = 0xffffffffu;
 
-// FLUSH: subnormal entries stored as 0 (the valid-less mode, whose weights
-// are the entries themselves); the valid mode flushes its products instead.
-template <bool FLUSH>
+// The table with subnormal entries stored as 0 (the weights of the
+// valid-less mode and of a unit plane); VALID: then the unflushed entries,
+// whose products the multiply-and-flush loop flushes.
+template <bool VALID>
 __global__ void wmf_weights_kernel(float* __restrict__ wtab, float inv_two_sig2) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < N_DIST2) {
     const float w = expf(-(float)i * inv_two_sig2);
-    wtab[i] = !FLUSH || w >= FLT_MIN ? w : 0.0f;
+    wtab[i] = w >= FLT_MIN ? w : 0.0f;
+    if constexpr (VALID) wtab[N_DIST2 + i] = w;
   }
 }
 
 // Sum the bins [lo, lo + NB) of one pixel over its window, in row-major
 // offset order. hp: the thread's bins (stride NT); t0: the window's first
 // word in the tile. U offsets are read and weighted before their sums are
-// added, so the table reads of a group are in flight together. VALID: v0
-// is the window's first participation weight in the staged plane.
-template <bool VALID>
+// added, so the table reads of a group are in flight together. MUL: each
+// weight times the participation weight at v0's offset, flushed.
+template <bool MUL>
 __device__ __forceinline__ void sum_window(float* __restrict__ hp,
                                            const uint32_t* __restrict__ t0,
                                            const float* __restrict__ v0, int tw, int k2,
@@ -135,7 +147,7 @@ __device__ __forceinline__ void sum_window(float* __restrict__ hp,
         if (k[u] < (unsigned)NB) {
           const unsigned e = __vabsdiffu4(cw, q & CMASK);
           w[u] = __ldg(wtab + __dp4a(e, e, 0u));
-          if constexpr (VALID) {
+          if constexpr (MUL) {
             w[u] = w[u] * vr[ox + u];
             if (fabsf(w[u]) < FLT_MIN) w[u] = 0.0f;
           }
@@ -148,15 +160,74 @@ __device__ __forceinline__ void sum_window(float* __restrict__ hp,
   }
 }
 
+// The cum at the end of each bin window but the last, as named scalars
+// kept in registers: an array here, even indexed only from unrolled loops,
+// was compiled to indexed loads from local memory (LDL in cuobjdump -sass).
+// Fields past MAXWIN - 1 stay constant zeros.
+static_assert(MAXWIN <= 8, "Ends holds at most 7 window ends");
+struct Ends {
+  float e0 = 0.0f, e1 = 0.0f, e2 = 0.0f, e3 = 0.0f, e4 = 0.0f, e5 = 0.0f, e6 = 0.0f;
+  __device__ __forceinline__ void set(int w, float c) {
+    e0 = MAXWIN > 1 && w == 0 ? c : e0;
+    e1 = MAXWIN > 2 && w == 1 ? c : e1;
+    e2 = MAXWIN > 3 && w == 2 ? c : e2;
+    e3 = MAXWIN > 4 && w == 3 ? c : e3;
+    e4 = MAXWIN > 5 && w == 4 ? c : e4;
+    e5 = MAXWIN > 6 && w == 5 ? c : e5;
+    e6 = MAXWIN > 7 && w == 6 ? c : e6;
+  }
+  __device__ __forceinline__ float get(int w) const {
+    return w == 0 ? e0 : w == 1 ? e1 : w == 2 ? e2 : w == 3 ? e3 : w == 4 ? e4 : w == 5 ? e5 : e6;
+  }
+};
+
+// One pixel's median over the bin windows [dmin + w * NB, + NB), w < nwin.
+template <bool MUL>
+__device__ __forceinline__ uint8_t median(float* __restrict__ hp,
+                                          const uint32_t* __restrict__ t0,
+                                          const float* __restrict__ v0, int tw, int k2,
+                                          uint32_t cw, int dmin, int nwin,
+                                          const float* __restrict__ wtab) {
+  // sweep A: every window in order; cum runs on through the bins
+  Ends ends;
+  float cum = 0.0f;
+  for (int w = 0; w < nwin; ++w) {
+    sum_window<MUL>(hp, t0, v0, tw, k2, cw, (unsigned)(dmin + w * NB), wtab);
+#pragma unroll 8
+    for (int k = 0; k < NB; ++k) cum += hp[k * NT];
+    ends.set(w, cum);
+  }
+  const float half = cum * 0.5f;
+  if (!(half > 0.0f)) return 0;    // cum_0 = 0 >= half already
+  // the window of the crossing: the first whose end reaches half, else the last
+  int wb = nwin - 1;
+#pragma unroll
+  for (int j = MAXWIN - 2; j >= 0; --j)
+    if (j < nwin - 1 && ends.get(j) >= half) wb = j;
+  // sweep B: the window of the crossing again, unless its sums are still there
+  if (wb != nwin - 1)
+    sum_window<MUL>(hp, t0, v0, tw, k2, cw, (unsigned)(dmin + wb * NB), wtab);
+  cum = wb ? ends.get(wb - 1) : 0.0f;
+  int k = 0;
+  for (; k < NB - 1; ++k) {
+    cum += hp[k * NT];
+    if (cum >= half) break;
+  }
+  return (uint8_t)(dmin + wb * NB + k);
+}
+
+// The explicit 1 block an SM is not the default: with the thread count
+// alone ptxas held both entries to 32 registers, which made the valid-less
+// entry ~8% slower (tune_wmf.py valid on an H100); with it they take 42 /
+// 37 and 3 blocks still fit an SM.
 template <bool VALID>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ guide,
                  const float* __restrict__ valid, uint8_t* __restrict__ out,
                  const float* __restrict__ wtab, int H, int W, int r, int n_bins) {
   extern __shared__ float smem[];
-  float* hist = smem;                          // [NB][NT]
-  float* cumw = hist + NB * NT;                // [MAXWIN][NT], cum at each window's end
-  uint32_t* tile = (uint32_t*)(cumw + MAXWIN * NT);   // [TH + 2r][TW + 2r]
+  float* hist = smem;                                   // [NB][NT]
+  uint32_t* tile = (uint32_t*)(hist + NB * NT);         // [TH + 2r][TW + 2r]
   float* vtile = (float*)(tile + (TH + 2 * r) * (TW + 2 * r));   // VALID: the same shape
   __shared__ int s_dmin, s_dmax;
 
@@ -175,6 +246,7 @@ joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ g
   __syncthreads();
 
   int mn = 1 << 30, mx = -1;
+  bool unit = true;        // VALID: every plane value this thread staged is 0 or 1
   for (int i = tid; i < tw * th; i += NT) {
     const int yy = y0 - r + i / tw, xx = x0 - r + i % tw;
     uint32_t word = NO_D << 22;
@@ -186,6 +258,7 @@ joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ g
         const float v = valid[img + q];
         vtile[i] = v;
         takes_part = v != 0.0f;
+        unit = unit && (v == 0.0f || v == 1.0f);
       }
       if (d < (unsigned)n_bins && takes_part) {
         mn = min(mn, (int)d);
@@ -205,7 +278,8 @@ joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ g
     atomicMin(&s_dmin, mn);
     atomicMax(&s_dmax, mx);
   }
-  __syncthreads();
+  // the barrier also ANDs the plane test over the block
+  const bool unit_plane = __syncthreads_and(unit);
 
   const int x = x0 + tx, y = y0 + ty;
   if (x >= W || y >= H) return;
@@ -221,40 +295,28 @@ joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ g
   const float* v0 = vtile + ty * tw + tx;
   const uint32_t cw = t0[r * tw + r] & CMASK;
   float* hp = hist + tid;
-  float* cp = cumw + tid;
-
-  // sweep A: every window in order; cum runs on through the bins
-  float cum = 0.0f;
-  for (int w = 0; w < nwin; ++w) {
-    sum_window<VALID>(hp, t0, v0, tw, k2, cw, (unsigned)(dmin + w * NB), wtab);
-#pragma unroll 8
-    for (int k = 0; k < NB; ++k) cum += hp[k * NT];
-    cp[w * NT] = cum;
-  }
-  const float half = cum * 0.5f;
-  if (!(half > 0.0f)) {    // cum_0 = 0 >= half already
-    *o = 0;
-    return;
-  }
-  int wb = 0;
-  while (wb < nwin - 1 && !(cp[wb * NT] >= half)) ++wb;
-  // sweep B: the window of the crossing again, unless its sums are still there
-  if (wb != nwin - 1)
-    sum_window<VALID>(hp, t0, v0, tw, k2, cw, (unsigned)(dmin + wb * NB), wtab);
-  cum = wb ? cp[(wb - 1) * NT] : 0.0f;
-  int k = 0;
-  for (; k < NB - 1; ++k) {
-    cum += hp[k * NT];
-    if (cum >= half) break;
-  }
-  *o = (uint8_t)(dmin + wb * NB + k);
+  *o = VALID && !unit_plane
+           ? median<true>(hp, t0, v0, tw, k2, cw, dmin, nwin, wtab + N_DIST2)
+           : median<false>(hp, t0, v0, tw, k2, cw, dmin, nwin, wtab);
 }
 
 // Bytes of dynamic shared memory a block needs at window radius r: the bins,
-// the window ends' cums, the words and (VALID) the plane's tile.
+// the words and (VALID) the plane's tile.
 long long smem_bytes(int r, bool valid) {
   const long long halo = (long long)(TH + 2 * r) * (TW + 2 * r);
-  return 4 * ((long long)(NB + MAXWIN) * NT + halo * (valid ? 2 : 1));
+  return 4 * ((long long)NB * NT + halo * (valid ? 2 : 1));
+}
+
+// Let the filter take smem bytes of dynamic shared memory, the SM's
+// carveout all shared memory (so that 3 blocks fit at r = 9).
+template <bool VALID>
+cudaError_t allow_smem(int smem) {
+  cudaError_t err = cudaFuncSetAttribute(joint_wmf_kernel<VALID>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(joint_wmf_kernel<VALID>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 template <bool VALID>
@@ -266,11 +328,10 @@ int launch(const uint8_t* disp, const uint8_t* guide, const float* valid, uint8_
   if (smem_bytes(r, VALID) + 64 > SMEM_LIMIT) return -1;   // 64: the static part
   const int smem = (int)smem_bytes(r, VALID);
   cudaStream_t s = (cudaStream_t)stream;
-  wmf_weights_kernel<!VALID><<<(N_DIST2 + 255) / 256, 256, 0, s>>>(wtab, inv_two_sig2);
+  wmf_weights_kernel<VALID><<<(N_DIST2 + 255) / 256, 256, 0, s>>>(wtab, inv_two_sig2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(joint_wmf_kernel<VALID>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = allow_smem<VALID>(smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
   joint_wmf_kernel<VALID><<<grid, NT, smem, s>>>(disp, guide, valid, out, wtab, H, W, r,
@@ -278,10 +339,22 @@ int launch(const uint8_t* disp, const uint8_t* guide, const float* valid, uint8_
   return (int)cudaGetLastError();
 }
 
+template <bool VALID>
+int blocks_per_sm(int r) {
+  if (r < 0 || smem_bytes(r, VALID) + 64 > SMEM_LIMIT) return -1;
+  const int smem = (int)smem_bytes(r, VALID);
+  int n = 0;
+  if (allow_smem<VALID>(smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, joint_wmf_kernel<VALID>, NT, smem) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
 }  // namespace
 
 // Returns -1 where the haloed tile of radius r does not fit a block's shared
-// memory, else the cudaError_t of the launch.
+// memory, else the cudaError_t of the launch. wtab: N_DIST2 floats.
 extern "C" int psm_joint_wmf(const uint8_t* disp, const uint8_t* guide, uint8_t* out,
                              float* wtab, int B, int H, int W, int r, int n_bins,
                              float inv_two_sig2, void* stream) {
@@ -290,11 +363,19 @@ extern "C" int psm_joint_wmf(const uint8_t* disp, const uint8_t* guide, uint8_t*
 }
 
 // The participation-weight mode: valid (B, H, W) float32 multiplies every
-// window weight; 0 where a pixel's total weight is 0. Returns as above.
+// window weight; 0 where a pixel's total weight is 0. wtab: 2 * N_DIST2
+// floats. Returns as above.
 extern "C" int psm_joint_wmf_valid(const uint8_t* disp, const uint8_t* guide,
                                    const float* valid, uint8_t* out, float* wtab, int B,
                                    int H, int W, int r, int n_bins, float inv_two_sig2,
                                    void* stream) {
   return launch<true>(disp, guide, valid, out, wtab, B, H, W, r, n_bins, inv_two_sig2,
                       stream);
+}
+
+// Blocks of the filter (valid != 0: of the participation-weight mode) that
+// one SM holds at window radius r, as the runtime's occupancy calculator
+// gives them under the launch's shared-memory attributes; -1 on an error.
+extern "C" int psm_joint_wmf_blocks_per_sm(int valid, int r) {
+  return valid ? blocks_per_sm<true>(r) : blocks_per_sm<false>(r);
 }

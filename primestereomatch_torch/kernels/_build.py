@@ -84,8 +84,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def _lib_path(name: str, source: pathlib.Path | None = None) -> pathlib.Path:
+    src = (source or CSRC / f"{name}.cu").read_bytes()
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{digest}.so"
@@ -121,22 +121,25 @@ def build(names=NAMES) -> float:
     return time.perf_counter() - t0
 
 
-def build_variants(name: str, variants: dict) -> dict:
-    """`csrc/<name>.cu` compiled once per entry of `variants` (key -> extra
-    nvcc flags, its -D knobs), the missing ones all at once, for the
+def build_variants(name: str, variants: dict, source: str | None = None) -> dict:
+    """Kernel `name`'s source (or the file `source`, such as an earlier
+    commit's copy of it) compiled once per entry of `variants` (key ->
+    extra nvcc flags, its -D knobs), the missing ones all at once, for the
     scripts that time shapes other than the shipped one. Returns the bound
     C entry per key; the compiler's output goes to
     BUILD_LOGS[f"{name} {key}"]."""
+    src_name = _SOURCE.get(name, name)
+    src = pathlib.Path(source) if source else CSRC / f"{src_name}.cu"
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, {}
     for key, flags in variants.items():
         tag = hashlib.sha256(" ".join(flags).encode()).hexdigest()[:8]
-        libs[key] = out_dir / f"{_lib_path(name).stem}-{tag}.so"
+        libs[key] = out_dir / f"{_lib_path(src_name, src).stem}-{tag}.so"
         if not libs[key].exists():
             tmp = f"{libs[key]}.{os.getpid()}.tmp"
             procs[key] = (tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, str(CSRC / f"{name}.cu")],
+                [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     for key, (tmp, proc) in procs.items():
         log = BUILD_LOGS[f"{name} {key}"] = proc.communicate()[0]
@@ -152,12 +155,18 @@ def build_variants(name: str, variants: dict) -> dict:
     return fns
 
 
+def library(name: str) -> pathlib.Path:
+    """The path of the shared library that holds kernel `name`, built at
+    first use."""
+    build((name,))
+    return _lib_path(_SOURCE.get(name, name))
+
+
 def load(name: str):
     """The bound C entry point of kernel `name`, built at first use."""
     if name not in _FNS:
-        build((name,))
         fn_name, argtypes = _ARGTYPES[name]
-        fn = getattr(ctypes.CDLL(str(_lib_path(_SOURCE.get(name, name)))), fn_name)
+        fn = getattr(ctypes.CDLL(str(library(name))), fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _FNS[name] = fn

@@ -9,7 +9,9 @@ of NB bins at a time between the least and greatest disparity of the tile,
 in the plain version's order: the medians are the plain version's, bit for
 bit. With a participation plane (`valid`, the TPU kernel's has_valid mode)
 the second entry of the same source multiplies every window weight by it
-and writes 0 where a pixel's total weight is 0 (`LAUNCHES["wmf_valid"]`).
+and writes 0 where a pixel's total weight is 0 (`LAUNCHES["wmf_valid"]`);
+a block whose haloed plane is all 0 or 1 (`unit_plane_blocks`) skips the
+multiply, a choice the kernel makes on the card.
 """
 
 from __future__ import annotations
@@ -38,25 +40,57 @@ def weighted_median_plain(disp: torch.Tensor, guide_u8: torch.Tensor, radius: in
     ])
 
 
-def bin_window_passes(disp: torch.Tensor, radius: int, n_bins: int) -> torch.Tensor:
+def _tile_max(t: torch.Tensor, radius: int, fill: int) -> torch.Tensor:
+    """The greatest value of (B, H, W) integers `t` over each kernel block's
+    haloed tile, positions outside the image taken as `fill`: (B, tiles_y,
+    tiles_x) int64."""
+    H, W = t.shape[1:]
+    pad = (radius, radius + -W % TILE_W, radius, radius + -H % TILE_H)
+    t = torch.nn.functional.pad(t.to(torch.int64), pad, value=fill)
+    return torch.nn.functional.max_pool2d(
+        t[:, None].float(), (TILE_H + 2 * radius, TILE_W + 2 * radius),
+        stride=(TILE_H, TILE_W))[:, 0].long()
+
+
+def bin_window_passes(disp: torch.Tensor, radius: int, n_bins: int,
+                      valid: torch.Tensor | None = None) -> torch.Tensor:
     """Passes over the window offsets that each block of the kernel makes on
     `disp` (B, H, W): one per window of NB bins between the least and the
     greatest disparity below `n_bins` in the block's haloed tile, and one
     more (the window of the median, summed again) where there are several.
-    Returns (B, tiles_y, tiles_x) int64; plain PyTorch, any device."""
-    B, H, W = disp.shape
+    A pixel whose participation weight `valid` is 0 counts as outside every
+    bin window, as the kernel stages it. Returns (B, tiles_y, tiles_x)
+    int64; plain PyTorch, any device."""
     d = disp.to(torch.int64)
     ok = d < n_bins
-    ph, pw = -H % TILE_H, -W % TILE_W
-    pad = (radius, radius + pw, radius, radius + ph)
-    lo = torch.nn.functional.pad(torch.where(ok, d, n_bins), pad, value=n_bins)
-    hi = torch.nn.functional.pad(torch.where(ok, d, -1), pad, value=-1)
-    win = (TILE_H + 2 * radius, TILE_W + 2 * radius)
-    pool = lambda t: torch.nn.functional.max_pool2d(   # noqa: E731
-        t[:, None].float(), win, stride=(TILE_H, TILE_W))[:, 0].long()
-    dmin, dmax = -pool(-lo), pool(hi)
+    if valid is not None:
+        ok &= valid != 0
+    dmin = -_tile_max(torch.where(ok, -d, -n_bins), radius, -n_bins)
+    dmax = _tile_max(torch.where(ok, d, -1), radius, -1)
     nwin = torch.where(dmax >= 0, (dmax - dmin) // NB + 1, 0)
     return nwin + (nwin > 1)
+
+
+def unit_plane_blocks(valid: torch.Tensor, radius: int) -> torch.Tensor:
+    """Whether each block of the kernel's valid mode takes the unit path:
+    every value of (B, H, W) `valid` in its haloed tile, inside the image,
+    is exactly 0 or 1 (-0 too; not NaN). Returns (B, tiles_y, tiles_x)
+    bool; plain PyTorch, any device. For reports and tests: the kernel
+    makes the choice itself."""
+    other = ~((valid == 0) | (valid == 1))
+    return _tile_max(other, radius, 0) == 0
+
+
+def blocks_per_sm(valid: bool, radius: int = 9) -> int:
+    """Blocks of the kernel (`valid`: of its participation-weight mode) that
+    one SM of the card holds at `radius`, by the CUDA runtime's occupancy
+    calculator under the launch's shared-memory attributes."""
+    fn = ctypes.CDLL(str(_build.library("wmf"))).psm_joint_wmf_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    n = fn(int(valid), radius)
+    if n < 0:
+        raise RuntimeError(f"no occupancy for K3 (valid={valid}) at radius {radius}")
+    return n
 
 
 def weighted_median(disp: torch.Tensor, guide_u8: torch.Tensor, radius: int = 9,
@@ -95,7 +129,9 @@ def weighted_median(disp: torch.Tensor, guide_u8: torch.Tensor, radius: int = 9,
     if B > MAX_GRID_Z:
         raise ValueError(f"{B} views exceed one launch's grid")
     out = torch.empty_like(disp)
-    wtab = torch.empty(N_DIST2, dtype=torch.float32, device=disp.device)
+    # the flushed weight table; the valid mode's unflushed one after it
+    wtab = torch.empty(N_DIST2 * (1 if valid is None else 2), dtype=torch.float32,
+                       device=disp.device)
     stream = torch.cuda.current_stream(disp.device).cuda_stream
     name = "wmf" if valid is None else "wmf_valid"
     fn = _build.load(name)

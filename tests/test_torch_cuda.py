@@ -864,16 +864,32 @@ def _valid_plane(kind: str, shape, r: int, rng) -> np.ndarray:
     """A participation plane: 'zero_halos' (0 on r rows at both ends: the
     global edges of a row tile), 'fractional' (uniform in [0, 1)) or
     'zero_windows' (64 x 64 blocks of zeros, whole windows with no weight,
-    on a fractional plane)."""
+    on a fractional plane). On the zero-halo plane: 'mixed' (128 x 128
+    squares of fractions on a checkerboard: unit blocks beside fractional
+    ones), 'near_one' (0.99999994, 1.0000001 and -0 scattered, a pixel in
+    20000 each, at least 2: their blocks leave the unit path but for -0), 'subnormal'
+    (1e-30 on the checkerboard's squares: products below FLT_MIN, flushed)
+    and 'far_colours' (the plane alone; the test pairs it with a guide of
+    far colours)."""
     v = np.ones(shape, np.float32)
-    if kind == "zero_halos":
-        v[:, :r] = 0.0
-        v[:, -r:] = 0.0
-    else:
+    if kind in ("fractional", "zero_windows"):
         v = rng.random(shape, dtype=np.float32)
         if kind == "zero_windows":
             v[:, 100:164, 200:264] = 0.0
             v[:, -64:, :64] = 0.0
+        return v
+    v[:, :r] = 0.0
+    v[:, -r:] = 0.0
+    yy, xx = np.meshgrid(np.arange(shape[1]) // 128, np.arange(shape[2]) // 128, indexing="ij")
+    square = np.broadcast_to((yy + xx) % 2 == 1, shape)
+    if kind == "mixed":
+        v = np.where(square, rng.random(shape, dtype=np.float32), v)
+    elif kind == "subnormal":
+        v = np.where(square, np.float32(1e-30), v)
+    elif kind == "near_one":
+        n = max(2, v.size // 20000)
+        for value in (0.99999994, 1.0000001, -0.0):
+            v[tuple(rng.integers(0, m, n) for m in shape)] = np.float32(value)
     return v
 
 
@@ -881,25 +897,46 @@ def _valid_plane(kind: str, shape, r: int, rng) -> np.ndarray:
 # (2 frames a rank, r = 9): y = 2, y = 4, y = 1 (d only), and b = 2
 WMF_TILES = [(4, 624 + 18, 2208), (4, 312 + 18, 2208), (4, 1248 + 18, 2208),
              (2, 624 + 18, 2208)]
+# (shape, plane): the tiles on the planes the mesh makes and their worst
+# cases; the unit path's edges at the y = 2 tile and at a small odd shape
+VALID_CASES = ([(s, k) for s in WMF_TILES for k in ("zero_halos", "fractional", "zero_windows")]
+               + [(s, k) for s in (WMF_TILES[0], (2, 75, 130))
+                  for k in ("mixed", "near_one", "subnormal", "far_colours")]
+               + [((2, 75, 130), k) for k in ("zero_halos", "fractional")])
 
 
-@pytest.mark.parametrize("kind", ["zero_halos", "fractional", "zero_windows"])
-@pytest.mark.parametrize("shape", WMF_TILES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape,kind", VALID_CASES,
+                         ids=["x".join(map(str, s)) + f"-{k}" for s, k in VALID_CASES])
 def test_weighted_median_valid_mode_is_bitwise_plain(dev, shape, kind):
     """K3's participation-weight mode: 0 pixels apart from its plain
     version (the plain JointWMF with `valid`, view by view) at the sharded
-    tiles' shapes; 0 where a whole window has no weight."""
+    tiles' shapes; 0 where a whole window has no weight. Blocks whose plane
+    is all 0 or 1 take the unit path, the others the multiply: the mixed
+    planes hold both. 'far_colours': a unit plane over a guide whose binned
+    pixels are 6-bit colour 50 apart from the rest (squared distance 7500:
+    subnormal weights, flushed), so pixels without a bin of their own get
+    total 0 and output 0."""
     rng = np.random.default_rng(shape[1] + len(kind))
     r, n_bins = 9, 256
     disp = torch.as_tensor(rng.integers(0, n_bins, shape, dtype=np.uint8), device=dev)
     guide = _wmf_guide(dev, shape, n_bins)
+    if kind == "far_colours":
+        n_bins = 128
+        binned = torch.as_tensor(rng.random(shape) < 0.1, device=dev)
+        disp = torch.where(binned, disp % n_bins, 200).to(torch.uint8)
+        guide = (binned[..., None] * 200).expand(*shape, 3).to(torch.uint8).contiguous()
     valid = torch.as_tensor(_valid_plane(kind, shape, r, rng), device=dev)
+    unit = float(K.wmf.unit_plane_blocks(valid, r).float().mean())
+    if kind in ("mixed", "near_one", "subnormal"):
+        assert 0.0 < unit < 1.0
     K.reset_launches()
     got = K.weighted_median(disp, guide, r, n_bins, 25.5, valid=valid)
     assert K.LAUNCHES["wmf_valid"] == 1 and K.LAUNCHES["wmf"] == 0
     assert torch.equal(got, K.weighted_median_plain(disp, guide, r, n_bins, 25.5, valid))
     if kind == "zero_windows":
         assert int(got[:, 100 + r:164 - r, 200 + r:264 - r].max()) == 0
+    if kind == "far_colours":
+        assert unit == 1.0 and bool((got[~binned & (valid > 0)] == 0).any())
 
 
 def test_weighted_median_valid_ones_equals_the_valid_less_kernel(dev):
