@@ -46,7 +46,7 @@ from primestereomatch_torch.utils.datasets import (
 from primestereomatch_torch.utils.device import resolve_device
 from primestereomatch_torch.utils.display import build_mosaic, disp_to_u8
 from primestereomatch_torch.utils.eval import BPResult, bad_pixel_metrics
-from primestereomatch_torch.utils.profiling import StageTimers
+from primestereomatch_torch.utils.profiling import StageTimers, span
 
 _MASKS = {"none": MASK_NONE, "nonocc": MASK_NONOCC, "disc": MASK_DISC}
 # convertTo(CV_32F, 1/255.0f): the JAX app's astype(float32) * float32(1/255)
@@ -54,6 +54,12 @@ _MASKS = {"none": MASK_NONE, "nonocc": MASK_NONOCC, "disc": MASK_DISC}
 # same on the card and on the host
 U8_TO_F32 = float(np.float32(1 / 255.0))
 RING = 2     # pinned staging slots of stream(): frame n in flight, n+1 filling
+# stream()'s host spans (utils/profiling.py::span), each closed before a yield;
+# the Rectifier's and the GIF entry's open inside SPAN_DISPATCH
+SPAN_READ = "psm.stream.read"          # the call into the source
+SPAN_DISPATCH = "psm.stream.dispatch"  # staging, upload, scale, forward, result copies, event
+SPAN_WAIT = "psm.stream.wait"          # the host blocked on frame n's event
+SPAN_FETCH = "psm.stream.fetch"        # copies out of the pinned slots, the FrameResult
 
 
 @dataclasses.dataclass
@@ -126,6 +132,9 @@ class StereoMatchApp:
         self._source = None
         self._rectifier = None
         self._sgbm_mode = "hh"
+        # stream()'s frames fetched, and those whose event had completed
+        # when the host came to wait (the device idle before the host)
+        self.stream_counts = {"frames": 0, "ready_at_wait": 0}
 
         if cfg.media_mode == "image":
             if cfg.left:
@@ -335,7 +344,13 @@ class StereoMatchApp:
         is dispatched before the host waits on frame n's event, and a
         result is copied out of its slot before the slot is reused (RING
         slots of each; slot n % RING is refilled only after frame n - RING's
-        event was waited on). On the CPU the same code runs unpinned."""
+        event was waited on). On the CPU the same code runs unpinned.
+
+        `stream_counts` adds each fetched frame to "frames", and to
+        "ready_at_wait" where its event had completed before the host came
+        to wait (always on the CPU, which has no event). While a profiler
+        runs, each frame records the SPAN_* spans above; frames pair with
+        their spans by order, as no span is open across a yield."""
         if self.cfg.alg != "STEREO_GIF" or self.cfg.timed:
             for _ in range(frames):
                 yield self.compute()
@@ -358,30 +373,32 @@ class StereoMatchApp:
             if state["exhausted"] or state["submitted"] >= frames:
                 return None
             try:
-                l_bgr, r_bgr = self._read()
+                with span(SPAN_READ):
+                    l_bgr, r_bgr = self._read()
             except StopIteration:
                 state["exhausted"] = True
                 return None
-            t0 = time.perf_counter()
-            i = state["submitted"] % RING
-            raw = slot("raw", (2, *l_bgr.shape), i)
-            raw[0].copy_(torch.from_numpy(l_bgr))     # torch's copies use the host's threads
-            raw[1].copy_(torch.from_numpy(r_bgr))
-            raw_dev = raw.to(self.device, non_blocking=True)
-            l_u8, r_u8 = self._rectify(raw_dev[0], raw_dev[1])
-            ld, rd = stereo_gif_forward(*self._gif_inputs(l_u8, r_u8), self.gif_cfg,
-                                        device=self.gif_device)
-            out = {"l_disp": ld, "r_disp": rd}
-            if self.cfg.calib_dir:
-                out["crops"] = torch.stack([l_u8, r_u8])
-            host = {}
-            for key, t in out.items():
-                host[key] = slot(key, t.shape, i)
-                host[key].copy_(t, non_blocking=True)
-            done = None
-            if cuda:
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
+            with span(SPAN_DISPATCH):
+                t0 = time.perf_counter()
+                i = state["submitted"] % RING
+                raw = slot("raw", (2, *l_bgr.shape), i)
+                raw[0].copy_(torch.from_numpy(l_bgr))     # torch's copies use the host's threads
+                raw[1].copy_(torch.from_numpy(r_bgr))
+                raw_dev = raw.to(self.device, non_blocking=True)
+                l_u8, r_u8 = self._rectify(raw_dev[0], raw_dev[1])
+                ld, rd = stereo_gif_forward(*self._gif_inputs(l_u8, r_u8), self.gif_cfg,
+                                            device=self.gif_device)
+                out = {"l_disp": ld, "r_disp": rd}
+                if self.cfg.calib_dir:
+                    out["crops"] = torch.stack([l_u8, r_u8])
+                host = {}
+                for key, t in out.items():
+                    host[key] = slot(key, t.shape, i)
+                    host[key].copy_(t, non_blocking=True)
+                done = None
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
             state["submitted"] += 1
             idx = self.frame_index
             self.frame_index += 1
@@ -392,18 +409,24 @@ class StereoMatchApp:
         while pending is not None and emitted < frames:
             nxt = dispatch()  # next frame in flight before fetching this one
             host, done, l_bgr, r_bgr, t0, idx = pending
-            if done is not None:
-                done.synchronize()
-            # copies out of the pinned slots, which a later frame reuses
-            res = {key: buf.clone().numpy() for key, buf in host.items()}
-            if "crops" in res:
-                l_bgr, r_bgr = res["crops"]
-            dt = (time.perf_counter() - t0) * 1e3
-            yield FrameResult(
-                l_disp=res["l_disp"], r_disp=res["r_disp"],
-                left_bgr=l_bgr, right_bgr=r_bgr,
-                times_ms={"total": dt}, metrics=None, frame_index=idx,
-            )
+            with span(SPAN_WAIT):
+                ready = done is None or done.query()
+                if not ready:
+                    done.synchronize()
+            with span(SPAN_FETCH):
+                # copies out of the pinned slots, which a later frame reuses
+                res = {key: buf.clone().numpy() for key, buf in host.items()}
+                if "crops" in res:
+                    l_bgr, r_bgr = res["crops"]
+                dt = (time.perf_counter() - t0) * 1e3
+                result = FrameResult(
+                    l_disp=res["l_disp"], r_disp=res["r_disp"],
+                    left_bgr=l_bgr, right_bgr=r_bgr,
+                    times_ms={"total": dt}, metrics=None, frame_index=idx,
+                )
+            self.stream_counts["frames"] += 1
+            self.stream_counts["ready_at_wait"] += ready
+            yield result
             emitted += 1
             pending = nxt
 

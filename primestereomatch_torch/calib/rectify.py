@@ -28,6 +28,9 @@ from primestereomatch_torch.calib.distortion import (
 from primestereomatch_torch.calib.ymlio import read_opencv_yml
 from primestereomatch_torch.ops.remap import bilinear_taps, blend, cast_like, padded_rows
 from primestereomatch_torch.utils.device import resolve_device
+from primestereomatch_torch.utils.profiling import span
+
+SPAN = "psm.rectify"     # a frame's rectification (utils/profiling.py::span)
 
 
 def _rectangles(
@@ -296,13 +299,14 @@ class Rectifier:
     def __call__(self, l_img, r_img) -> tuple[torch.Tensor, torch.Tensor]:
         """(H, W[, C]) images of `img_size` (tensors, or numpy arrays
         uploaded once) -> the rectified and cropped pair on the device."""
-        l, r = (torch.as_tensor(img, device=self.device) for img in (l_img, r_img))
-        if l.shape[:2] != self._size or r.shape != l.shape or r.dtype != l.dtype:
-            raise ValueError(f"expected two {self._size} images of one dtype, got "
-                             f"{tuple(l.shape)} {l.dtype} and {tuple(r.shape)} {r.dtype}")
-        C = l.shape[2] if l.dim() == 3 else 1
-        v = padded_rows((l, r), C)[self._taps]                # (4, 2, h, w, C)
-        out = cast_like(blend(v, self._fx, self._fy, self._gx, self._gy), l.dtype)
-        if l.dim() == 2:
-            out = out[..., 0]
-        return out[0], out[1]
+        with span(SPAN):
+            l, r = (torch.as_tensor(img, device=self.device) for img in (l_img, r_img))
+            if l.shape[:2] != self._size or r.shape != l.shape or r.dtype != l.dtype:
+                raise ValueError(f"expected two {self._size} images of one dtype, got "
+                                 f"{tuple(l.shape)} {l.dtype} and {tuple(r.shape)} {r.dtype}")
+            C = l.shape[2] if l.dim() == 3 else 1
+            v = padded_rows((l, r), C)[self._taps]                # (4, 2, h, w, C)
+            out = cast_like(blend(v, self._fx, self._fy, self._gx, self._gy), l.dtype)
+            if l.dim() == 2:
+                out = out[..., 0]
+            return out[0], out[1]

@@ -61,6 +61,15 @@ from primestereomatch_torch.ops.jointwmf import joint_wmf
 from primestereomatch_torch.ops.wta import wta_disparity
 from primestereomatch_torch.utils.device import resolve_device
 from primestereomatch_torch.utils.png import write_png
+from primestereomatch_torch.utils.profiling import span
+
+# the GIF entry's host spans (utils/profiling.py::span): the whole entry,
+# and its stages as children
+SPAN_FORWARD = "psm.gif.forward"
+SPAN_PREP = "psm.gif.prep"            # guide statistics, gradients
+SPAN_COST_MAPS = "psm.gif.cost_maps"  # the cost and low maps: K4, plain cost -> K1, or K10
+SPAN_WTA = "psm.gif.wta"              # K2
+SPAN_WMF = "psm.gif.wmf"              # K3, table mode, the toolchain
 
 
 def _to_u8(img01: torch.Tensor) -> torch.Tensor:
@@ -117,41 +126,47 @@ def _forward_views(l_imgs: torch.Tensor, r_imgs: torch.Tensor, cfg: GIFConfig,
                    run_postprocess: bool, findex=None, wmap=None) -> torch.Tensor:
     """(B, H, W, 3) pairs on one device -> (2B, H, W) uint8, lefts first.
     `findex` holds the 2B views' feature indexes for table mode."""
-    H, W = l_imgs.shape[1:3]
-    s, k, D = cfg.subsample, cfg.fgf_low_radius, cfg.max_dis
-    views = torch.cat([l_imgs, r_imgs])
-    stats = guide_stats(views, (H // s, W // s), k, cfg.gif_eps).contiguous()
+    with span(SPAN_FORWARD):
+        H, W = l_imgs.shape[1:3]
+        s, k, D = cfg.subsample, cfg.fgf_low_radius, cfg.max_dis
+        u8 = cfg.cvc_dtype == "u8"
+        with span(SPAN_PREP):
+            views = torch.cat([l_imgs, r_imgs])
+            stats = guide_stats(views, (H // s, W // s), k, cfg.gif_eps).contiguous()
+            grds = None if u8 else view_gradients(views, cfg)
 
-    if cfg.cvc_dtype == "u8":
-        # the fused tails build the float cost: every geometry takes K1
-        maps = low_maps(unit_cost(sampled_u8_costs(views, cfg)), stats, k)      # K1
-        disp = upsample_wta(views, maps)                                      # K2
-    else:
-        grds = view_gradients(views, cfg)
-        cost = dict(alpha=cfg.alpha, border_cost=cfg.border_cost, tau1=cfg.tau1,
-                    tau2=cfg.tau2)
-        if cfg.tail_fusion == "full" and full_fusion_applies(W, D, s):
-            disp = cvc_wta(views, grds, stats, D, k, **cost)                  # K10
-        else:
-            if fused_cvc_applies(W, D, s):
-                maps = cvc_low_maps(views, grds, stats, D, k, **cost)         # K4
+        maps = None
+        with span(SPAN_COST_MAPS):
+            if u8:
+                # the fused tails build the float cost: every geometry takes K1
+                maps = low_maps(unit_cost(sampled_u8_costs(views, cfg)), stats, k)  # K1
             else:
-                p = sampled_cost_volumes(views, grds, D, (H // s, W // s), **cost)
-                maps = low_maps(p, stats, k)                                  # K1
-            disp = upsample_wta(views, maps)                                  # K2
+                cost = dict(alpha=cfg.alpha, border_cost=cfg.border_cost, tau1=cfg.tau1,
+                            tau2=cfg.tau2)
+                if cfg.tail_fusion == "full" and full_fusion_applies(W, D, s):
+                    disp = cvc_wta(views, grds, stats, D, k, **cost)              # K10
+                elif fused_cvc_applies(W, D, s):
+                    maps = cvc_low_maps(views, grds, stats, D, k, **cost)         # K4
+                else:
+                    p = sampled_cost_volumes(views, grds, D, (H // s, W // s), **cost)
+                    maps = low_maps(p, stats, k)                                  # K1
+        if maps is not None:
+            with span(SPAN_WTA):
+                disp = upsample_wta(views, maps)                                  # K2
 
-    if not run_postprocess:
-        return disp
-    if cfg.pp_toolchain:
-        disp = _toolchain(disp, views, cfg)
-    if cfg.wmf_mode == "table" and findex is not None:
-        # the plain op: table mode has no kernel in either package
-        return torch.stack([
-            joint_wmf(d, radius=cfg.wmf_radius, n_bins=D, sigma=cfg.wmf_sigma,
-                      findex=f, wmap=wmap) for d, f in zip(disp, findex)])
-    return weighted_median(                                                   # K3
-        disp, _to_u8(views), radius=cfg.wmf_radius, n_bins=D, sigma=cfg.wmf_sigma,
-    )
+        if not run_postprocess:
+            return disp
+        with span(SPAN_WMF):
+            if cfg.pp_toolchain:
+                disp = _toolchain(disp, views, cfg)
+            if cfg.wmf_mode == "table" and findex is not None:
+                # the plain op: table mode has no kernel in either package
+                return torch.stack([
+                    joint_wmf(d, radius=cfg.wmf_radius, n_bins=D, sigma=cfg.wmf_sigma,
+                              findex=f, wmap=wmap) for d, f in zip(disp, findex)])
+            return weighted_median(                                               # K3
+                disp, _to_u8(views), radius=cfg.wmf_radius, n_bins=D, sigma=cfg.wmf_sigma,
+            )
 
 
 def _toolchain(disp: torch.Tensor, views: torch.Tensor, cfg: GIFConfig) -> torch.Tensor:

@@ -19,7 +19,7 @@ from primestereomatch_torch.utils.display import (  # noqa: F401
 )
 from primestereomatch_torch.utils.profiling import (  # noqa: F401
     StageTimers,
-    hbm_roofline_fraction,
+    span,
     trace,
 )
 from primestereomatch_torch.utils.video import (  # noqa: F401

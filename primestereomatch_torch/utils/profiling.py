@@ -8,11 +8,10 @@ device profiling (oclUtil printProfilingInfo), map here to:
   * StageTimers: accumulating per-stage timers with running averages; on a
     CUDA device a stage is timed by CUDA events around it and ends in a
     synchronisation, so its time is the device's, not the enqueue's;
-  * trace(): a torch.profiler context that writes a Chrome trace;
-  * collect_kernel_stats(): per-kernel device time from torch.profiler's
-    averages (the reference's CL_QUEUE_PROFILING_ENABLE event dump);
-  * gif_hbm_bytes() / hbm_roofline_fraction(): the memory-bound
-    speed-of-light estimate of a STEREO_GIF frame against the H100's HBM.
+  * trace(): a torch.profiler context that writes a Chrome trace, the
+    device's kernels and copies beside the program's spans;
+  * span(): a named host span of the program (`psm.*`), recorded only
+    while a profiler runs, on the clock of the profiler's device rows.
 """
 
 from __future__ import annotations
@@ -24,7 +23,22 @@ import time
 
 import torch
 
-H100_HBM_GBPS = 3350.0     # H100 SXM HBM3
+# what span() returns while no profiler runs: one shared context, no allocation
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records the host span `name` while a profiler is
+    recording (`torch.profiler`, `trace()`), and the shared no-op otherwise.
+
+    The span is a plain CPU op of the profiler (the FUNCTION scope of
+    `_RecordFunctionFast`), nested by the profiler's own stack. Unlike
+    `record_function`'s user annotations it has no mirror among the
+    device's events, so a reader of the trace never takes a span for
+    device work. Off, a call costs one check of the profiler's state."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 @dataclasses.dataclass
@@ -95,67 +109,3 @@ def trace(log_dir: str):
     with profile(activities=_activities()) as prof:
         yield prof
     prof.export_chrome_trace(str(pathlib.Path(log_dir) / "trace.json"))
-
-
-def collect_kernel_stats(fn, args, steps: int = 5, warmup: int = 2) -> list[dict]:
-    """Run `fn(*args)` `steps` times under torch.profiler and return the
-    MEASURED device time of each kernel (and copy), sorted by total self
-    time: dicts of name, occurrences, total_self_us and avg_self_us (per
-    occurrence). Raises RuntimeError without a CUDA card, or where the
-    trace holds no device time: a CPU run has no device to report."""
-    from torch.profiler import profile
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("collect_kernel_stats needs a CUDA card: a CPU run "
-                           "has no device time")
-    for _ in range(warmup):
-        fn(*args)
-    torch.cuda.synchronize()
-    with profile(activities=_activities()) as prof:
-        for _ in range(steps):
-            fn(*args)
-        torch.cuda.synchronize()
-    recs = []
-    for e in prof.key_averages():
-        # device rows: device time and no host time of their own
-        if e.self_device_time_total <= 0 or e.self_cpu_time_total != 0:
-            continue
-        occ = max(int(e.count), 1)
-        recs.append({
-            "name": e.key,
-            "occurrences": occ,
-            "total_self_us": float(e.self_device_time_total),
-            "avg_self_us": float(e.self_device_time_total) / occ,
-        })
-    if not recs:
-        raise RuntimeError("the profiler captured no device time")
-    recs.sort(key=lambda r: -r["total_self_us"])
-    return recs
-
-
-def gif_hbm_bytes(height: int, width: int, max_dis: int, subsample: int,
-                  wmf_radius: int = 9) -> int:
-    """Minimum HBM traffic for one STEREO_GIF frame (both views), assuming
-    perfect fusion: inputs once, the low-res volume once each way through
-    the filter chain, the filtered full-res volume once into WTA, and the
-    WMF tiles once. This is the denominator for a speed-of-light claim."""
-    h, w = height // subsample, width // subsample
-    f32 = 4
-    img = height * width * 3 * f32 * 2                 # both views read
-    low_volume = max_dis * h * w * f32 * 2 * 2         # build + filter read
-    # upsampled (a, b) maps consumed at full res by q/WTA: 4 maps per view
-    q_inputs = 4 * max_dis * h * w * f32 * 2
-    q_stream = max_dis * height * width * f32 * 2      # q evaluated into argmin
-    disp = height * width * 2                          # uint8 out, both views
-    wmf = (height * width * (1 + 3 + 4) + disp) * 2    # tiles in, disp out
-    return img + low_volume + q_inputs + q_stream + wmf
-
-
-def hbm_roofline_fraction(frame_seconds: float, height: int, width: int,
-                          max_dis: int, subsample: int,
-                          hbm_gbps: float = H100_HBM_GBPS) -> float:
-    """Fraction of HBM speed-of-light achieved (default: the H100 SXM's
-    3.35 TB/s)."""
-    needed = gif_hbm_bytes(height, width, max_dis, subsample)
-    sol = needed / (hbm_gbps * 1e9)
-    return sol / frame_seconds

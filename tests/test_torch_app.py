@@ -315,7 +315,7 @@ def _surface(parser):
 def test_cli_parser_is_jax_surface_plus_device():
     got, want = _surface(cli.build_parser()), _surface(jcli.build_parser())
     assert set(got) == set(want) == {"", "image", "video"}
-    assert got[""] == want[""] | {"--device"}
+    assert got[""] == want[""] | {"--device", "--trace"}
     assert got["image"] == want["image"] and got["video"] == want["video"]
     p = cli.build_parser()
     a = p.parse_args(["-a", "STEREO_GIF", "--device", "cpu", "image", "--dataset", "Teddy"])

@@ -1,10 +1,11 @@
 """The port's host utilities (`utils/video.py`, `utils/display.py`,
 `utils/profiling.py`, `native/`) against the JAX package's on the CPU, on
-the same inputs made from a seed with numpy. Frame sources, mosaics,
-`disp_to_u8` and `gif_hbm_bytes` must be bitwise equal; the native
+the same inputs made from a seed with numpy. Frame sources, mosaics and
+`disp_to_u8` must be bitwise equal; the native
 bindings are held to the JAX package's `tests/test_native.py` and skip
 where the native runtime cannot be built."""
 
+import json
 import threading
 
 import numpy as np
@@ -13,7 +14,6 @@ import torch
 
 from primestereomatch_tpu import native as jax_native
 from primestereomatch_tpu.utils import display as jdisplay
-from primestereomatch_tpu.utils import profiling as jprofiling
 from primestereomatch_tpu.utils import video as jvideo
 from primestereomatch_torch import native
 from primestereomatch_torch.utils import display, profiling, video
@@ -165,24 +165,18 @@ def test_stage_timers(device):
     assert "CVC" in t.report() and "PP" in t.report()
 
 
-@pytest.mark.parametrize("shape", [(375, 450, 64, 4), (526, 1016, 64, 4),
-                                   (1242, 2208, 256, 4), (375, 450, 64, 1)])
-def test_gif_hbm_bytes_and_roofline_equal_jax(shape):
-    assert profiling.gif_hbm_bytes(*shape) == jprofiling.gif_hbm_bytes(*shape)
-    got = profiling.hbm_roofline_fraction(0.005, *shape)
-    assert got == jprofiling.hbm_roofline_fraction(0.005, *shape, hbm_gbps=3350.0)
-    assert got == profiling.gif_hbm_bytes(*shape) / 3.35e12 / 0.005
-
-
 def test_trace_and_kernel_stats_on_cpu(tmp_path):
-    """trace() writes a Chrome trace; collect_kernel_stats needs a card and
-    raises on the CPU rather than report host time as device time."""
+    """trace() writes a Chrome trace that holds the program's spans beside
+    the ops (on a card, the kernels too); no span is recorded outside it."""
     with profiling.trace(str(tmp_path / "t")):
-        torch.ones(64).cumsum(0)
-    assert (tmp_path / "t" / "trace.json").stat().st_size > 0
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            profiling.collect_kernel_stats(lambda x: x + 1, (torch.ones(4),))
+        with profiling.span("psm.test.outer"):
+            with profiling.span("psm.test.inner"):
+                torch.ones(64).cumsum(0)
+    assert profiling.span("psm.test.after") is profiling._NO_SPAN
+    trace = json.loads((tmp_path / "t" / "trace.json").read_text())
+    names = [e.get("name") for e in trace["traceEvents"]]
+    assert "psm.test.outer" in names and "psm.test.inner" in names
+    assert "psm.test.after" not in names
 
 
 # ---- native runtime (tests/test_native.py against the port's bindings) ---------------
