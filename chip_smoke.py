@@ -18,9 +18,11 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      at D=100, which its 16 disparities a block do not divide, 0 values
      required) and K10 (cost + chain + WTA, also against
      K4 -> K2 on the card, 0 differing pixels required) at a seeded ZED-VGA
-     pair (376x672, D=64) and the 2K pair; K3 at 2K on two inputs, the WTA
-     output and uniformly random disparities over all 256 bins (the most
-     bin-window passes), 0 differing pixels required at every K3 shape;
+     pair (376x672, D=64) and the 2K pair; K3 at 2K on three inputs, the
+     WTA output, uniformly random disparities over all 256 bins (the most
+     bin-window passes) and the WTA output of a gif_zed2k.clutter pool
+     frame (the blocks the ranks cut most), 0 differing pixels required at
+     every K3 shape;
      SGBM (K6-K9, bitwise) at Teddy D=64 and the 2K pair rounded to uint8,
      D=256: K7's uint16 group partials summed on the card against the
      plain int32 S, its int32 path (a P2 beyond the uint16 bound) against
@@ -55,7 +57,8 @@ Phases (each prints its lines; any failed check raises and exits non-zero):
      tune_select.py, tune_speckle.py; K8's from the partials and from the
      int32 S, with the kernel instance's registers from the build log, and
      its device time by the profiler), the speckle hook as the plain-torch
-     ops it was before K9 took it in, K3's bin-window passes per block,
+     ops it was before K9 took it in, K3's passes a block (over each
+     tile's range and over its ranked levels, at every K3 input timed),
      K7's bytes per (pixel, d) by its own count, the rate that follows,
      its time at four ring sizes and on 8 image rows alone, end-to-end frame
      times (host clock, synchronised; 10 frames for the 2K GIF paths), a
@@ -459,6 +462,44 @@ def synthetic_2k(seed: int = 0):
     return (*synthetic_pair(H2K, W2K, seed, rect, 96, 48), rect)
 
 
+def wmf_passes(disp: torch.Tensor, radius: int, n_bins: int,
+               valid: torch.Tensor | None = None) -> dict:
+    """K3's passes over the window offsets a block on `disp`, the mean over
+    its blocks: with bin windows over each haloed tile's range (the earlier
+    design) and over its ranked levels (the kernel's); the share of blocks
+    whose passes the ranks cut."""
+    spans = K.wmf.range_window_passes(disp, radius, n_bins, valid).double()
+    ranked = K.wmf.bin_window_passes(disp, radius, n_bins, valid).double()
+    return {"passes_range_mean": float(spans.mean()), "passes_mean": float(ranked.mean()),
+            "passes_max": int(ranked.max()),
+            "ranks_cut_share": float((ranked < spans).double().mean())}
+
+
+def passes_text(p: dict) -> str:
+    return (f"passes a block {p['passes_range_mean']:.3f} over the range, {p['passes_mean']:.3f} "
+            f"ranked (max {p['passes_max']}), the ranks cut {p['ranks_cut_share']:.1%} of blocks")
+
+
+def clutter_2k(dev, cfg, seed: int = 1):
+    """K3's inputs on the first pool frame of the benchmark's
+    gif_zed2k.clutter cell at `seed`, as the app hands it to the GIF entry:
+    the WTA output of both views (K10, bitwise K4 -> K2) and the uint8
+    guide."""
+    from portbench import run as bench
+    from portbench.traffic.scene import eyes
+    from primestereomatch_torch.app import U8_TO_F32
+
+    frame = bench.make_pool(bench.load_cell("gif_zed2k.clutter"), seed, dev)[0]
+    left, right = (torch.as_tensor(e, device=dev).float() * U8_TO_F32 for e in eyes(frame))
+    views, grds = stacked_views(left[None], right[None], cfg)
+    H, W = views.shape[1:3]
+    s, k = cfg.subsample, cfg.fgf_low_radius
+    stats = guide_stats(views, (H // s, W // s), k, cfg.gif_eps).contiguous()
+    disp = K.cvc_wta(views, grds, stats, cfg.max_dis, k, alpha=cfg.alpha,
+                     border_cost=cfg.border_cost, tau1=cfg.tau1, tau2=cfg.tau2)
+    return disp, _to_u8(views).contiguous()
+
+
 def time_rows(name: str, row: dict, timing: dict, plain_iters=(ITERS, WARMUP)) -> None:
     """CUDA-event times of each kernel and its plain version, and its bound."""
     for kname, (fk, fp, (b_ms, b_by)) in timing.items():
@@ -558,20 +599,18 @@ def parity(name: str, cfg, left, right, dev, report, with_wmf: bool = True):
         g_u8 = _to_u8(g2).contiguous()
         r, sig = cfg.wmf_radius, cfg.wmf_sigma
 
-        def wmf_parity(key, disp):
-            (med_p, plain_ms) = timed_once(lambda: K.weighted_median_plain(disp, g_u8, r, D, sig))
-            med_k = K.weighted_median(disp, g_u8, r, D, sig)
+        def wmf_parity(key, disp, guide):
+            (med_p, plain_ms) = timed_once(lambda: K.weighted_median_plain(disp, guide, r, D, sig))
+            med_k = K.weighted_median(disp, guide, r, D, sig)
             diff = (med_k.int() - med_p.int()).abs()
             frac = float((diff > 0).float().mean())
-            passes = K.wmf.bin_window_passes(disp, r, D).float()
             row[key] = {"max_abs_err": int(diff.max()), "mismatch": frac,
                         "n_differ": int((diff > 0).sum()), "n": diff.numel(),
-                        "passes_mean": float(passes.mean()), "passes_max": int(passes.max())}
+                        **wmf_passes(disp, r, D)}
             log(f"parity {name} weighted_median ({key}) (B,H,W) r={r} bins={D}: "
                 f"mismatch={frac:.3e} ({row[key]['n_differ']} px) "
                 f"max|diff|={row[key]['max_abs_err']} (bounds 1e-3, 1; 0 px required); "
-                f"bin-window passes per block mean {row[key]['passes_mean']:.3f} "
-                f"max {row[key]['passes_max']}")
+                f"{passes_text(row[key])}")
             if frac > 1e-3 or int(diff.max()) > 1:
                 raise AssertionError(f"weighted_median disagrees with its plain version at {name}")
             if row[key]["n_differ"]:
@@ -579,24 +618,28 @@ def parity(name: str, cfg, left, right, dev, report, with_wmf: bool = True):
                                      f"at {name}")
             return med_p, plain_ms
 
-        med_p, _ = wmf_parity("wmf", disp_p)
+        med_p, _ = wmf_parity("wmf", disp_p, g_u8)
         timing["wmf"] = (
             lambda: K.weighted_median(disp_p, g_u8, r, D, sig),
             lambda: K.weighted_median_plain(disp_p, g_u8, r, D, sig),
             bound_wmf(disp_p, med_p, r, D))
         if D > 64:
             # the most bin-window passes: uniformly random disparities over
-            # every bin; its plain version runs once (the parity run is timed)
+            # every bin; and the WTA output of a cluttered scene (many depth
+            # edges: the blocks the ranks cut most). Their plain versions run
+            # once (the parity run is timed)
             rnd = torch.as_tensor(np.random.default_rng(3).integers(
                 0, D, tuple(disp_p.shape), dtype=np.uint8), device=dev)
-            med_r, plain_ms = wmf_parity("wmf_random", rnd)
-            b_ms, b_by = bound_wmf(rnd, med_r, r, D)
-            rr = row["wmf_random"]
-            rr.update(ms=cuda_ms(lambda: K.weighted_median(rnd, g_u8, r, D, sig)),
-                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-            log(f"time {name} wmf_random: kernel {rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} ms "
-                f"(one run), bound {b_ms:.5f} ms ({b_by}), {b_ms / rr['ms']:.1%} of bound")
-            del rnd, med_r
+            for key, (d_in, guide) in (("wmf_random", (rnd, g_u8)),
+                                       ("wmf_clutter", clutter_2k(dev, cfg))):
+                med_r, plain_ms = wmf_parity(key, d_in, guide)
+                b_ms, b_by = bound_wmf(d_in, med_r, r, D)
+                rr = row[key]
+                rr.update(ms=cuda_ms(lambda: K.weighted_median(d_in, guide, r, D, sig)),
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                log(f"time {name} {key}: kernel {rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} "
+                    f"ms (one run), bound {b_ms:.5f} ms ({b_by}), {b_ms / rr['ms']:.1%} of bound")
+            del rnd, d_in, guide, med_r
     time_rows(name, row, timing)
     report[name] = row
 
@@ -1335,6 +1378,8 @@ def calib_kernel_parity(name: str, pair_u8, cfg, scfg, dev) -> dict:
                lambda: K.weighted_median_plain(disp_p, g_u8, r, D, sig),
                lambda med: bound_wmf(disp_p, med, r, D), f"(B,H,W)={(B2, H, W)} r={r} bins={D}",
                bound_frac=0.0)
+    row["wmf"].update(wmf_passes(disp_p, r, D))
+    log(f"calibrated {name} wmf: {passes_text(row['wmf'])}")
     del views, grds, stats, maps_k, maps_p, disp_p, g_u8
     torch.cuda.empty_cache()
 
@@ -2024,15 +2069,14 @@ def wmf_valid_parity(dev, smi: str, ref_disp: torch.Tensor, guide_u8: torch.Tens
                     valid_less_ms=cuda_ms(lambda: K.weighted_median(d, g, r, n_bins, sig)),
                     bound_ms=b_ms, bound_by=b_by)
                 row[kind]["ratio"] = row[kind]["ms"] / row[kind]["valid_less_ms"]
-                row[kind]["passes_per_block"] = [
-                    float(K.wmf.bin_window_passes(d, r, n_bins, valid).double().mean())
-                    for valid in (v, None)]
+                row[kind]["passes"] = {"valid": wmf_passes(d, r, n_bins, v),
+                                       "valid_less": wmf_passes(d, r, n_bins)}
                 log(f"time wmf_valid {tname} {tuple(d.shape)} {kind}: valid mode "
                     f"{row[kind]['ms']:.4f} ms, valid-less {row[kind]['valid_less_ms']:.4f} ms "
-                    f"on the same input ({row[kind]['ratio']:.3f}x; passes a block "
-                    f"{row[kind]['passes_per_block'][0]:.3f} / "
-                    f"{row[kind]['passes_per_block'][1]:.3f}), bound {b_ms:.5f} ms "
-                    f"({b_by}), {b_ms / row[kind]['ms']:.1%} of bound; {smi}")
+                    f"on the same input ({row[kind]['ratio']:.3f}x), bound {b_ms:.5f} ms "
+                    f"({b_by}), {b_ms / row[kind]['ms']:.1%} of bound; valid mode "
+                    f"{passes_text(row[kind]['passes']['valid'])}; valid-less "
+                    f"{passes_text(row[kind]['passes']['valid_less'])}; {smi}")
         zh = row["zero_halos"]
         row.update(ms=zh["ms"], valid_less_ms=zh["valid_less_ms"], plain_ms=zh["plain_ms_once"],
                    bound_ms=zh["bound_ms"], bound_by=zh["bound_by"],
@@ -2139,6 +2183,8 @@ def sharded_kernel_parity(dev, smi: str, lt: torch.Tensor, rt: torch.Tensor, cfg
     held("wmf", key, where, views.shape[:3], lambda: K.weighted_median(disp, g_u8, r, D, sig),
          lambda: K.weighted_median_plain(disp, g_u8, r, D, sig),
          lambda med: bound_wmf(disp, med, r, D), "exact")
+    out["wmf"][key].update(wmf_passes(disp, r, D))
+    log(f"sharded wmf at {where}: {passes_text(out['wmf'][key])}")
     del views, g_u8, disp
     torch.cuda.empty_cache()
     return out
@@ -2643,12 +2689,14 @@ def run(tables: dict) -> int:
                                  "at": "teddy 375x450 D=64, subsample=1"}
         if kname == "wmf":
             g = report["2k"]["wmf_random"]
-            row["at_2k_random"] = {**{key: g[key] for key in timed}, "mismatch": g["mismatch"],
-                                   "passes_mean": g["passes_mean"],
-                                   "passes_max": g["passes_max"],
-                                   "at": "2k, uniformly random disparities over 256 bins"}
+            passes = ("passes_range_mean", "passes_mean", "passes_max", "ranks_cut_share")
+            for key, at in (("wmf_random", "uniformly random disparities over 256 bins"),
+                            ("wmf_clutter", "the WTA output of a gif_zed2k.clutter pool frame")):
+                g = report["2k"][key]
+                row[f"at_2k_{key[4:]}"] = {**{k_: g[k_] for k_ in timed + passes},
+                                           "mismatch": g["mismatch"], "at": f"2k, {at}"}
             for key, rep_k in (("at", t), ("at_2k", k2)):
-                row[f"passes_{key}"] = {"mean": rep_k["passes_mean"], "max": rep_k["passes_max"]}
+                row[f"passes_{key}"] = {k_: rep_k[k_] for k_ in passes}
         if kname in ("sgbm_scan", "select"):
             extra = [key for key in t if key.startswith(("int32_", "bytes_", "tb_", "ring_", "rows8_",
                                                          "device_"))]
@@ -2698,7 +2746,7 @@ def run(tables: dict) -> int:
         "at_tiles": {n: {"shape": wv[n]["shape"],
                          **{k: {key: wv[n][k][key] for key in
                                 ("ms", "valid_less_ms", "ratio", "bound_ms", "unit_block_share",
-                                 "passes_per_block")}
+                                 "passes")}
                             for k in ("zero_halos", "fractional", "ones")}} for n in wv},
         "n_differ": {n: {k: wv[n][k]["n_differ"] for k in WMF_PLANES} for n in wv},
         "unit_block_share": {n: {k: wv[n][k]["unit_block_share"] for k in WMF_PLANES}
@@ -2706,8 +2754,8 @@ def run(tables: dict) -> int:
         "launches_sharded": {p: c.get("wmf_valid", 0) for p, c in shard["launches"].items()},
     })
     k3_2k = report["2k"]["wmf"]["ms"]
-    log(f"K3 valid-less at 2K {k3_2k:.4f} ms in this run ({k3_2k / 2.8711 - 1:+.1%} against "
-        f"PERF.md's 2.8711 ms); valid mode {t['ms']:.4f} ms against "
+    log(f"K3 valid-less at 2K {k3_2k:.4f} ms in this run ({k3_2k / 2.3041 - 1:+.1%} against "
+        f"PERF.md's 2.3041 ms); valid mode {t['ms']:.4f} ms against "
         f"valid-less {t['valid_less_ms']:.4f} ms at the tile {t['shape']}, "
         f"{t['bound_ms'] / t['ms']:.1%} of bound; {smi}")
     out_dir = ROOT / "chiprun_out"

@@ -37,10 +37,19 @@
 //   * No thread holds n_bins floats. Each bin's weight h_k is the sum of
 //     its weights in row-major window-offset order and does not depend on
 //     the other bins, so a thread sums NB bins at a time (NB floats of
-//     shared memory, bin-major: conflict-free). The block reduces the
-//     least and greatest disparity [dmin, dmax] of its haloed tile; bins
-//     outside are exact zeros, so the bin windows start at dmin and end at
-//     dmax. Sweep A takes the windows in order: one pass over the offsets
+//     shared memory, bin-major: conflict-free). A bin that no pixel of
+//     the block's haloed tile holds is an exact zero in every histogram of
+//     the block, and cum + 0.0f is cum, so only the tile's own levels need
+//     windows. The block reduces the least and greatest disparity [dmin,
+//     dmax] of its haloed tile. Where dmax - dmin < NB one window starting
+//     at dmin holds them all. Otherwise the block flags the levels its
+//     words carry, ranks them (an exclusive prefix count over the 256
+//     flags, one warp), rewrites each word's disparity to its rank, and sums
+//     windows of NB ranks: a block at an edge between two far levels makes
+//     one pass where the range [dmin, dmax] would take up to five. The
+//     median's rank maps back through the list of levels. In what follows,
+//     "bin" is the block's bin: the disparity less dmin, or the rank.
+//     Sweep A takes the windows in order: one pass over the offsets
 //     adds those whose d falls in the window, then the running cumulative
 //     sum cum_k = fl(cum_{k-1} + h_k) goes on through the window's bins
 //     and its value at the window's end is kept in a register. After the
@@ -50,7 +59,10 @@
 //     it from the kept cum of the window before. With one window there is
 //     no sweep B.
 //     Adding the same weights to a bin in the same order gives the same
-//     bits, so the medians equal the plain version's at every pixel.
+//     bits, and the skipped bins add exact zeros, so the medians equal the
+//     plain version's at every pixel. The flags, ranks and levels are two
+//     256-byte arrays of static shared memory: 3 blocks still fit an SM in
+//     both modes.
 //
 // The participation-weight mode (the TPU kernel's has_valid, used by the
 // row-sharded pipeline's zero halos; entry psm_joint_wmf_valid): every
@@ -181,13 +193,13 @@ struct Ends {
   }
 };
 
-// One pixel's median over the bin windows [dmin + w * NB, + NB), w < nwin.
+// One pixel's median bin over the bin windows [dmin + w * NB, + NB),
+// w < nwin; -1 where its total weight is 0.
 template <bool MUL>
-__device__ __forceinline__ uint8_t median(float* __restrict__ hp,
-                                          const uint32_t* __restrict__ t0,
-                                          const float* __restrict__ v0, int tw, int k2,
-                                          uint32_t cw, int dmin, int nwin,
-                                          const float* __restrict__ wtab) {
+__device__ __forceinline__ int median(float* __restrict__ hp, const uint32_t* __restrict__ t0,
+                                      const float* __restrict__ v0, int tw, int k2,
+                                      uint32_t cw, int dmin, int nwin,
+                                      const float* __restrict__ wtab) {
   // sweep A: every window in order; cum runs on through the bins
   Ends ends;
   float cum = 0.0f;
@@ -198,7 +210,7 @@ __device__ __forceinline__ uint8_t median(float* __restrict__ hp,
     ends.set(w, cum);
   }
   const float half = cum * 0.5f;
-  if (!(half > 0.0f)) return 0;    // cum_0 = 0 >= half already
+  if (!(half > 0.0f)) return -1;   // cum_0 = 0 >= half already
   // the window of the crossing: the first whose end reaches half, else the last
   int wb = nwin - 1;
 #pragma unroll
@@ -213,7 +225,7 @@ __device__ __forceinline__ uint8_t median(float* __restrict__ hp,
     cum += hp[k * NT];
     if (cum >= half) break;
   }
-  return (uint8_t)(dmin + wb * NB + k);
+  return dmin + wb * NB + k;
 }
 
 // The explicit 1 block an SM is not the default: with the thread count
@@ -229,7 +241,9 @@ joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ g
   float* hist = smem;                                   // [NB][NT]
   uint32_t* tile = (uint32_t*)(hist + NB * NT);         // [TH + 2r][TW + 2r]
   float* vtile = (float*)(tile + (TH + 2 * r) * (TW + 2 * r));   // VALID: the same shape
-  __shared__ int s_dmin, s_dmax;
+  __shared__ int s_dmin, s_dmax, s_levels;
+  __shared__ uint8_t s_rank[256];   // 1 where a level takes part; then its rank
+  __shared__ uint8_t s_level[256];  // the level of each rank
 
   const int tid = threadIdx.x;
   const int tx = tid % TW, ty = tid / TW;
@@ -243,6 +257,7 @@ joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ g
     s_dmin = 1 << 30;
     s_dmax = -1;
   }
+  for (int d = tid; d < 256; d += NT) s_rank[d] = 0;
   __syncthreads();
 
   int mn = 1 << 30, mx = -1;
@@ -281,23 +296,58 @@ joint_wmf_kernel(const uint8_t* __restrict__ disp, const uint8_t* __restrict__ g
   // the barrier also ANDs the plane test over the block
   const bool unit_plane = __syncthreads_and(unit);
 
+  const int dmax = s_dmax;
+  int dmin = s_dmin, nwin = (dmax - dmin) / NB + 1;
+  const bool ranked = nwin > 1;     // the same in every thread of the block
+  if (ranked) {
+    for (int i = tid; i < tw * th; i += NT) {
+      const unsigned d = tile[i] >> 22;
+      if (d != NO_D) s_rank[d] = 1;
+    }
+    __syncthreads();
+    if (tid < 32) {                 // warp 0 ranks the flags, 32 levels a step
+      const unsigned below = (1u << tid) - 1u;
+      int n = 0;
+      for (int d0 = dmin & ~31; d0 <= dmax; d0 += 32) {
+        const int d = d0 + tid;
+        const bool on = s_rank[d] != 0;
+        const unsigned m = __ballot_sync(FULL, on);
+        if (on) {
+          const int k = n + __popc(m & below);
+          s_rank[d] = (uint8_t)k;
+          s_level[k] = (uint8_t)d;
+        }
+        n += __popc(m);
+      }
+      if (tid == 0) s_levels = n;
+    }
+    __syncthreads();
+    for (int i = tid; i < tw * th; i += NT) {
+      const uint32_t word = tile[i];
+      const unsigned d = word >> 22;
+      if (d != NO_D) tile[i] = (word & ~(NO_D << 22)) | ((uint32_t)s_rank[d] << 22);
+    }
+    dmin = 0;
+    nwin = (s_levels - 1) / NB + 1;
+    __syncthreads();
+  }
+
   const int x = x0 + tx, y = y0 + ty;
   if (x >= W || y >= H) return;
   uint8_t* o = out + img + (size_t)y * W + x;
-  const int dmin = s_dmin, dmax = s_dmax;
   if (dmax < 0) {          // nothing in the tile has a bin: every total is 0
     *o = 0;
     return;
   }
-  const int nwin = (dmax - dmin) / NB + 1;
   const int k2 = 2 * r + 1;
   const uint32_t* t0 = tile + ty * tw + tx;
   const float* v0 = vtile + ty * tw + tx;
   const uint32_t cw = t0[r * tw + r] & CMASK;
   float* hp = hist + tid;
-  *o = VALID && !unit_plane
-           ? median<true>(hp, t0, v0, tw, k2, cw, dmin, nwin, wtab + N_DIST2)
-           : median<false>(hp, t0, v0, tw, k2, cw, dmin, nwin, wtab);
+  const int b = VALID && !unit_plane
+                    ? median<true>(hp, t0, v0, tw, k2, cw, dmin, nwin, wtab + N_DIST2)
+                    : median<false>(hp, t0, v0, tw, k2, cw, dmin, nwin, wtab);
+  *o = b < 0 ? 0 : ranked ? s_level[b] : (uint8_t)b;
 }
 
 // Bytes of dynamic shared memory a block needs at window radius r: the bins,
@@ -325,7 +375,7 @@ int launch(const uint8_t* disp, const uint8_t* guide, const float* valid, uint8_
            void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
   if (r < 0 || n_bins < 1 || n_bins > 256) return (int)cudaErrorInvalidValue;
-  if (smem_bytes(r, VALID) + 64 > SMEM_LIMIT) return -1;   // 64: the static part
+  if (smem_bytes(r, VALID) + 640 > SMEM_LIMIT) return -1;   // 640: the static part
   const int smem = (int)smem_bytes(r, VALID);
   cudaStream_t s = (cudaStream_t)stream;
   wmf_weights_kernel<VALID><<<(N_DIST2 + 255) / 256, 256, 0, s>>>(wtab, inv_two_sig2);
@@ -341,7 +391,7 @@ int launch(const uint8_t* disp, const uint8_t* guide, const float* valid, uint8_
 
 template <bool VALID>
 int blocks_per_sm(int r) {
-  if (r < 0 || smem_bytes(r, VALID) + 64 > SMEM_LIMIT) return -1;
+  if (r < 0 || smem_bytes(r, VALID) + 640 > SMEM_LIMIT) return -1;
   const int smem = (int)smem_bytes(r, VALID);
   int n = 0;
   if (allow_smem<VALID>(smem) != cudaSuccess ||

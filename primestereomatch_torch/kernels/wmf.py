@@ -5,13 +5,16 @@ on the H100 by arithmetic (an expf and ~11 flops per pixel and window
 offset). A block takes a 32 x 8 tile of pixels, stages the haloed region
 in shared memory as one packed word per pixel, takes the weights from a
 table of the integer colour distances, and sums each pixel's bins a window
-of NB bins at a time between the least and greatest disparity of the tile,
-in the plain version's order: the medians are the plain version's, bit for
-bit. With a participation plane (`valid`, the TPU kernel's has_valid mode)
-the second entry of the same source multiplies every window weight by it
-and writes 0 where a pixel's total weight is 0 (`LAUNCHES["wmf_valid"]`);
-a block whose haloed plane is all 0 or 1 (`unit_plane_blocks`) skips the
-multiply, a choice the kernel makes on the card.
+of NB bins at a time, in the plain version's order: the medians are the
+plain version's, bit for bit. The windows run from the least disparity of
+the haloed tile where its range fits one window, else over the disparities
+the tile holds, ranked (`bin_window_passes`; `range_window_passes` counts
+the windows over the whole range). With a participation plane (`valid`,
+the TPU kernel's has_valid mode) the second entry of the same source
+multiplies every window weight by it and writes 0 where a pixel's total
+weight is 0 (`LAUNCHES["wmf_valid"]`); a block whose haloed plane is all 0
+or 1 (`unit_plane_blocks`) skips the multiply, a choice the kernel makes on
+the card.
 """
 
 from __future__ import annotations
@@ -40,34 +43,58 @@ def weighted_median_plain(disp: torch.Tensor, guide_u8: torch.Tensor, radius: in
     ])
 
 
-def _tile_max(t: torch.Tensor, radius: int, fill: int) -> torch.Tensor:
-    """The greatest value of (B, H, W) integers `t` over each kernel block's
-    haloed tile, positions outside the image taken as `fill`: (B, tiles_y,
-    tiles_x) int64."""
+def _haloed_tiles(t: torch.Tensor, radius: int, fill) -> torch.Tensor:
+    """The values of (B, H, W) `t` in each kernel block's haloed tile,
+    positions outside the image taken as `fill`: (B, tiles_y, tiles_x,
+    (TILE_H + 2 radius) * (TILE_W + 2 radius))."""
     H, W = t.shape[1:]
     pad = (radius, radius + -W % TILE_W, radius, radius + -H % TILE_H)
-    t = torch.nn.functional.pad(t.to(torch.int64), pad, value=fill)
-    return torch.nn.functional.max_pool2d(
-        t[:, None].float(), (TILE_H + 2 * radius, TILE_W + 2 * radius),
-        stride=(TILE_H, TILE_W))[:, 0].long()
+    t = torch.nn.functional.pad(t, pad, value=fill)
+    tiles = t.unfold(1, TILE_H + 2 * radius, TILE_H).unfold(2, TILE_W + 2 * radius, TILE_W)
+    return tiles.reshape(*tiles.shape[:3], -1)
+
+
+def _binned(disp: torch.Tensor, n_bins: int, valid: torch.Tensor | None) -> torch.Tensor:
+    """`disp` as int64, n_bins where a pixel lies in no bin window (d >=
+    n_bins, or participation weight 0), as the kernel stages it."""
+    d = disp.to(torch.int64)
+    ok = d < n_bins
+    if valid is not None:
+        ok &= valid != 0
+    return torch.where(ok, d, n_bins)
+
+
+def range_window_passes(disp: torch.Tensor, radius: int, n_bins: int,
+                        valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Passes over the window offsets that each block would make with bin
+    windows over the whole range of its haloed tile: one per window of NB
+    bins between the least and the greatest disparity below `n_bins`, one
+    more (the window of the median, summed again) where there are several.
+    The kernel's own count where that range fits one window. A pixel whose
+    participation weight `valid` is 0 counts as outside every bin window,
+    as the kernel stages it. Returns (B, tiles_y, tiles_x) int64; plain
+    PyTorch, any device."""
+    tiles = _haloed_tiles(_binned(disp, n_bins, valid), radius, n_bins)
+    dmin = tiles.amin(-1)
+    dmax = torch.where(tiles < n_bins, tiles, -1).amax(-1)
+    nwin = torch.where(dmax >= 0, (dmax - dmin) // NB + 1, 0)
+    return nwin + (nwin > 1)
 
 
 def bin_window_passes(disp: torch.Tensor, radius: int, n_bins: int,
                       valid: torch.Tensor | None = None) -> torch.Tensor:
     """Passes over the window offsets that each block of the kernel makes on
-    `disp` (B, H, W): one per window of NB bins between the least and the
-    greatest disparity below `n_bins` in the block's haloed tile, and one
-    more (the window of the median, summed again) where there are several.
-    A pixel whose participation weight `valid` is 0 counts as outside every
-    bin window, as the kernel stages it. Returns (B, tiles_y, tiles_x)
-    int64; plain PyTorch, any device."""
-    d = disp.to(torch.int64)
-    ok = d < n_bins
-    if valid is not None:
-        ok &= valid != 0
-    dmin = -_tile_max(torch.where(ok, -d, -n_bins), radius, -n_bins)
-    dmax = _tile_max(torch.where(ok, d, -1), radius, -1)
-    nwin = torch.where(dmax >= 0, (dmax - dmin) // NB + 1, 0)
+    `disp` (B, H, W): one per window of NB of the distinct disparities below
+    `n_bins` that its haloed tile holds, and one more (the window of the
+    median, summed again) where there are several. Where the tile's range
+    fits one window this is `range_window_passes`, 1. A pixel whose
+    participation weight `valid` is 0 counts as outside every bin window.
+    Returns (B, tiles_y, tiles_x) int64; plain PyTorch, any device. For
+    reports and tests: the wrapper never calls it."""
+    tiles = _haloed_tiles(_binned(disp, n_bins, valid), radius, n_bins)
+    held = torch.zeros((*tiles.shape[:3], n_bins + 1), dtype=torch.bool, device=disp.device)
+    held.scatter_(3, tiles, True)
+    nwin = (held[..., :n_bins].sum(-1) + NB - 1) // NB
     return nwin + (nwin > 1)
 
 
@@ -78,7 +105,7 @@ def unit_plane_blocks(valid: torch.Tensor, radius: int) -> torch.Tensor:
     bool; plain PyTorch, any device. For reports and tests: the kernel
     makes the choice itself."""
     other = ~((valid == 0) | (valid == 1))
-    return _tile_max(other, radius, 0) == 0
+    return ~_haloed_tiles(other, radius, False).any(-1)
 
 
 def blocks_per_sm(valid: bool, radius: int = 9) -> int:

@@ -91,21 +91,60 @@ def _wmf_guide(dev, shape, seed):
     return torch.as_tensor(rng.integers(0, 256, (*shape, 3), dtype=np.uint8), device=dev)
 
 
+def _sparse_levels(shape, n_bins: int, levels_a_view, rng) -> np.ndarray:
+    """Disparities of view b drawn from levels_a_view[b % len] levels of 0 to
+    n_bins - 2, every level in every 32x8 cell of the kernel's tiles that
+    has room (so a haloed tile holds the view's count, or fewer at the
+    image's edges and ragged cells, or more where the halo adds one); the
+    other pixels skewed to the low levels in one cell and to the high ones
+    in the next (the median's rank window the first or the last); and
+    n_bins - 1 at one pixel a view, row TILE_H + 1: a level that the first
+    tile row holds in its halo only."""
+    B, H, W = shape
+    th, tw = K.wmf.TILE_H, K.wmf.TILE_W
+    disp = np.empty(shape, np.uint8)
+    for b in range(B):
+        n = min(levels_a_view[b % len(levels_a_view)], n_bins - 1)
+        levels = np.sort(rng.choice(n_bins - 1, n, replace=False))
+        for i, y in enumerate(range(0, H, th)):
+            for j, x in enumerate(range(0, W, tw)):
+                cell = disp[b, y:y + th, x:x + tw]
+                u = rng.random(cell.shape) ** (3.0 if (i + j) % 2 else 1 / 3.0)
+                cell[...] = levels[(u * n).astype(int)]
+                at = rng.permutation(cell.size)[:n]
+                cell.reshape(-1)[at] = levels[:at.size]
+        disp[b, min(th + 1, H - 1), min(5, W - 1)] = n_bins - 1
+    return disp
+
+
+# the levels a view of each shape holds in kind "sparse_levels": at 256 bins
+# and radius 9 the tiles' haloed tiles hold 64, 65, 128 and 129 levels among
+# others, 1, 2 and 3 rank windows
+SPARSE_LEVELS = {(2, 40, 70): (64, 128), (1, 5, 20): (2,), (1, 37, 101): (129,)}
+
+
 @pytest.mark.parametrize("radius,n_bins", WMF_CASES)
-@pytest.mark.parametrize("kind", ["random", "two_level", "beyond_bins"])
+@pytest.mark.parametrize("kind", ["random", "two_level", "beyond_bins", "sparse_levels"])
 @pytest.mark.parametrize("shape", [(2, 40, 70), (1, 5, 20), (1, 37, 101)],
                          ids=["tiles", "below_a_tile", "ragged"])
 def test_weighted_median_kernel_is_bitwise_plain(dev, radius, n_bins, kind, shape):
     """K3 sums every bin in the plain version's order: 0 pixels differ, on
     full-range random disparities (every bin window, both sweeps), on a
     two-level map (a flipped tie would move the median from 3 to 200), with
-    disparities >= n_bins (skipped by both), on an image smaller than one
-    32x8 tile and on one whose sides are no multiple of it."""
+    disparities >= n_bins (skipped by both), on sparse levels over a wide
+    range (the blocks' rank windows, `_sparse_levels`), on an image smaller
+    than one 32x8 tile and on one whose sides are no multiple of it."""
     rng = np.random.default_rng(radius * 1000 + n_bins + shape[1])
     if kind == "random":
         disp = rng.integers(0, n_bins, shape, dtype=np.uint8)
     elif kind == "two_level":
         disp = np.where(rng.random(shape) < 0.5, 3, min(200, n_bins - 1)).astype(np.uint8)
+    elif kind == "sparse_levels":
+        disp = _sparse_levels(shape, n_bins, SPARSE_LEVELS[shape], rng)
+        if (radius, n_bins, shape) == (9, 256, (2, 40, 70)):
+            passes = set(K.wmf.bin_window_passes(torch.as_tensor(disp), radius, n_bins)
+                         .flatten().tolist())
+            assert {1, 3, 4} <= passes        # 1, 2 and 3 rank windows
     else:
         disp = rng.integers(0, 256, shape, dtype=np.uint8)    # some >= n_bins unless 256
         disp[0, :3] = 255
@@ -864,7 +903,9 @@ def _valid_plane(kind: str, shape, r: int, rng) -> np.ndarray:
     """A participation plane: 'zero_halos' (0 on r rows at both ends: the
     global edges of a row tile), 'fractional' (uniform in [0, 1)) or
     'zero_windows' (64 x 64 blocks of zeros, whole windows with no weight,
-    on a fractional plane). On the zero-halo plane: 'mixed' (128 x 128
+    on a fractional plane). 'sparse_fractional' and 'sparse_zero_only'
+    (the test gives them sparse levels): the fractional plane, and the
+    zero-halo plane. On the zero-halo plane: 'mixed' (128 x 128
     squares of fractions on a checkerboard: unit blocks beside fractional
     ones), 'near_one' (0.99999994, 1.0000001 and -0 scattered, a pixel in
     20000 each, at least 2: their blocks leave the unit path but for -0), 'subnormal'
@@ -872,7 +913,7 @@ def _valid_plane(kind: str, shape, r: int, rng) -> np.ndarray:
     and 'far_colours' (the plane alone; the test pairs it with a guide of
     far colours)."""
     v = np.ones(shape, np.float32)
-    if kind in ("fractional", "zero_windows"):
+    if kind in ("fractional", "zero_windows", "sparse_fractional"):
         v = rng.random(shape, dtype=np.float32)
         if kind == "zero_windows":
             v[:, 100:164, 200:264] = 0.0
@@ -898,11 +939,14 @@ def _valid_plane(kind: str, shape, r: int, rng) -> np.ndarray:
 WMF_TILES = [(4, 624 + 18, 2208), (4, 312 + 18, 2208), (4, 1248 + 18, 2208),
              (2, 624 + 18, 2208)]
 # (shape, plane): the tiles on the planes the mesh makes and their worst
-# cases; the unit path's edges at the y = 2 tile and at a small odd shape
+# cases; the unit path's edges at the y = 2 tile and at a small odd shape;
+# sparse levels (rank windows) on both paths
 VALID_CASES = ([(s, k) for s in WMF_TILES for k in ("zero_halos", "fractional", "zero_windows")]
                + [(s, k) for s in (WMF_TILES[0], (2, 75, 130))
                   for k in ("mixed", "near_one", "subnormal", "far_colours")]
-               + [((2, 75, 130), k) for k in ("zero_halos", "fractional")])
+               + [((2, 75, 130), k) for k in ("zero_halos", "fractional")]
+               + [(s, k) for s in (WMF_TILES[0], (2, 75, 130))
+                  for k in ("sparse_fractional", "sparse_zero_only")])
 
 
 @pytest.mark.parametrize("shape,kind", VALID_CASES,
@@ -915,10 +959,20 @@ def test_weighted_median_valid_mode_is_bitwise_plain(dev, shape, kind):
     planes hold both. 'far_colours': a unit plane over a guide whose binned
     pixels are 6-bit colour 50 apart from the rest (squared distance 7500:
     subnormal weights, flushed), so pixels without a bin of their own get
-    total 0 and output 0."""
+    total 0 and output 0. 'sparse_*': sparse levels (`_sparse_levels`), on
+    the multiply path, and on the unit path with one more level that only
+    pixels of weight 0 hold: blocks rank without it."""
     rng = np.random.default_rng(shape[1] + len(kind))
     r, n_bins = 9, 256
-    disp = torch.as_tensor(rng.integers(0, n_bins, shape, dtype=np.uint8), device=dev)
+    if kind.startswith("sparse"):
+        disp = _sparse_levels(shape, n_bins, (65, 129), rng)
+        if kind == "sparse_zero_only":
+            unused = np.setdiff1d(np.arange(n_bins), disp)[0]
+            disp[:, :r] = unused                  # the zero-halo plane's 0 rows
+            disp[:, -r:] = unused
+    else:
+        disp = rng.integers(0, n_bins, shape, dtype=np.uint8)
+    disp = torch.as_tensor(disp, device=dev)
     guide = _wmf_guide(dev, shape, n_bins)
     if kind == "far_colours":
         n_bins = 128
@@ -937,6 +991,10 @@ def test_weighted_median_valid_mode_is_bitwise_plain(dev, shape, kind):
         assert int(got[:, 100 + r:164 - r, 200 + r:264 - r].max()) == 0
     if kind == "far_colours":
         assert unit == 1.0 and bool((got[~binned & (valid > 0)] == 0).any())
+    if kind.startswith("sparse"):
+        ranked = K.wmf.bin_window_passes(disp, r, n_bins, valid)
+        assert bool((ranked < K.wmf.range_window_passes(disp, r, n_bins, valid)).any())
+        assert unit == (1.0 if kind == "sparse_zero_only" else 0.0)
 
 
 def test_weighted_median_valid_ones_equals_the_valid_less_kernel(dev):

@@ -156,24 +156,40 @@ def test_joint_wmf_plain_special_maps_match_jax(kind):
 
 def test_wmf_bin_window_passes_counts_the_kernels_sweeps():
     """`bin_window_passes` counts, per 32x8 tile of the CUDA kernel, one pass
-    per window of NB bins between the least and greatest binned disparity of
-    the haloed tile, and one more where there are several."""
-    from primestereomatch_torch.kernels.wmf import NB, TILE_H, TILE_W, bin_window_passes
+    per window of NB of the distinct binned disparities of the haloed tile
+    (their ranks), and one more where there are several;
+    `range_window_passes` the same over every bin between the least and
+    greatest binned disparity."""
+    from primestereomatch_torch.kernels.wmf import (
+        NB,
+        TILE_H,
+        TILE_W,
+        bin_window_passes,
+        range_window_passes,
+    )
 
     disp = torch.full((1, 2 * TILE_H, 3 * TILE_W), 250, dtype=torch.uint8)
-    assert bin_window_passes(disp, 3, 10).sum() == 0          # nothing has a bin
-    assert (bin_window_passes(disp, 3, 256) == 1).all()       # one level: one window
+    for count in (bin_window_passes, range_window_passes):
+        assert count(disp, 3, 10).sum() == 0                 # nothing has a bin
+        assert (count(disp, 3, 256) == 1).all()              # one level: one window
     disp[0, 0, 0], disp[0, 0, 1] = 3, 200
-    got = bin_window_passes(disp, 3, 256)[0]
     spans = (250 - 3) // NB + 1
+    got = range_window_passes(disp, 3, 256)[0]
     assert got[0, 0] == spans + 1 and (got.flatten()[1:] == 1).all()
+    assert (bin_window_passes(disp, 3, 256) == 1).all()      # three levels: one rank window
     # the halo reaches into the next tile: radius 9 from column TILE_W + 5
     disp[0, 0, 0], disp[0, 0, 1] = 250, 250
     disp[0, 3, TILE_W + 5] = 250 - NB
-    got = bin_window_passes(disp, 9, 256)[0]
+    got = range_window_passes(disp, 9, 256)[0]
     assert got[0].tolist() == [3, 3, 1] and got[1].tolist() == [3, 3, 1]
+    assert (bin_window_passes(disp, 9, 256) == 1).all()
+    # NB + 2 levels in the first tile: two rank windows of the four of the range
+    disp[0, 1:4, :(NB + 2) // 3] = torch.arange(NB + 2, dtype=torch.uint8).view(3, -1) * 3
+    assert bin_window_passes(disp, 9, 256)[0, 0, 0] == 3
+    assert range_window_passes(disp, 9, 256)[0, 0, 0] == 250 // NB + 2
     ragged = torch.zeros((2, TILE_H + 1, TILE_W - 3), dtype=torch.uint8)
-    assert tuple(bin_window_passes(ragged, 9, 64).shape) == (2, 2, 1)
+    for count in (bin_window_passes, range_window_passes):
+        assert tuple(count(ragged, 9, 64).shape) == (2, 2, 1)
 
 
 def test_joint_wmf_plain_constant_region():

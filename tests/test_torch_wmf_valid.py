@@ -1,7 +1,8 @@
 """K3's participation-weight mode (`valid`) on the planes its unit path takes,
 on the CPU: the plain version against the JAX op and the TPU kernel
 (interpret mode), and the kernel's block counters (`unit_plane_blocks`,
-`bin_window_passes(valid=)`) against a numpy brute force. The CUDA kernel
+`bin_window_passes` and `range_window_passes`, with and without `valid`)
+against a numpy brute force. The CUDA kernel
 itself is held to the plain version on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
 
@@ -18,6 +19,7 @@ from primestereomatch_torch.kernels.wmf import (
     TILE_H,
     TILE_W,
     bin_window_passes,
+    range_window_passes,
     unit_plane_blocks,
 )
 
@@ -114,26 +116,64 @@ def test_unit_plane_blocks_matches_brute_force(shape, r):
     assert want.any() and not want.all()
 
 
-@pytest.mark.parametrize("shape,r", COUNTER_CASES, ids=lambda c: str(c))
-def test_bin_window_passes_with_valid_matches_brute_force(shape, r):
-    """`bin_window_passes(valid=)`: a pixel of weight 0 lies in no bin
-    window, like one with d >= n_bins; one pass per window of NB bins
-    between the least and greatest binned disparity of the haloed tile,
-    one more where there are several."""
-    rng = np.random.default_rng(shape[2] + r)
+def _sparse_levels(shape, rng) -> np.ndarray:
+    """Disparities whose 8 x 16 cells each draw from 1, 2, 40, 64, 65 or 129
+    levels of 0-255: haloed tiles whose distinct levels take 1 to 4 rank
+    windows, over ranges that take up to 4."""
+    B, H, W = shape
+    disp = np.empty(shape, np.uint8)
+    counts = (1, 2, 40, 64, 65, 129)
+    for b in range(B):
+        for i, y in enumerate(range(0, H, 8)):
+            for j, x in enumerate(range(0, W, 16)):
+                levels = rng.choice(256, counts[(i + 2 * j + b) % len(counts)], replace=False)
+                block = disp[b, y:y + 8, x:x + 16]
+                block[...] = rng.choice(levels, block.shape)
+    return disp
+
+
+# the range count on full-range disparities (the ids of its first cases);
+# the ranked count on sparse levels, with and without a plane
+PASS_CASES = ([pytest.param(s, r, "range", True, id=f"{s}-{r}") for s, r in COUNTER_CASES]
+              + [pytest.param(s, r, "ranked", v, id=f"ranked-{'' if v else 'no_'}valid-{s}-{r}")
+                 for s, r in COUNTER_CASES for v in (True, False)])
+
+
+@pytest.mark.parametrize("shape,r,count,with_valid", PASS_CASES)
+def test_bin_window_passes_with_valid_matches_brute_force(shape, r, count, with_valid):
+    """The kernel's passes a block: `range_window_passes`, one per window of
+    NB bins between the least and greatest binned disparity of the haloed
+    tile; `bin_window_passes`, one per window of NB of the distinct binned
+    disparities it holds (the ranks); each one more where there are
+    several. A pixel of weight 0 lies in no bin window, like one with
+    d >= n_bins. The ranked count is never above the range count."""
+    rng = np.random.default_rng(shape[2] + r + len(count))
     n_bins = 200
-    disp = rng.integers(0, 256, shape, dtype=np.uint8)
+    if count == "range":
+        disp = rng.integers(0, 256, shape, dtype=np.uint8)
+    else:
+        disp = _sparse_levels(shape, rng)
     valid = rng.random(shape, dtype=np.float32)
     valid[rng.random(shape) < 0.3] = 0.0
     valid[:, : shape[1] * 3 // 5, : shape[2] * 3 // 4] = 0.0    # whole tiles of weight 0
+    if not with_valid:
+        valid = np.ones(shape, np.float32)
     want = np.zeros(_grid(shape), np.int64)
     for b, ty, tx, rows, cols in _haloed_tiles(shape, r):
         d = disp[b, rows, cols][(disp[b, rows, cols] < n_bins) & (valid[b, rows, cols] != 0)]
         if d.size:
-            n = (int(d.max()) - int(d.min())) // NB + 1
+            n = ((int(d.max()) - int(d.min())) // NB + 1 if count == "range"
+                 else -(-np.unique(d).size // NB))
             want[b, ty, tx] = n + (n > 1)
-    got = bin_window_passes(torch.from_numpy(disp), r, n_bins, torch.from_numpy(valid))
+    counter = range_window_passes if count == "range" else bin_window_passes
+    plane = torch.from_numpy(valid) if with_valid else None
+    got = counter(torch.from_numpy(disp), r, n_bins, plane)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert (want == 0).any() and (want > 2).any()
-    # without a plane, the weight-0 pixels count again
-    assert (bin_window_passes(torch.from_numpy(disp), r, n_bins).numpy() >= want).all()
+    assert (want == 0).any() >= with_valid
+    ranked = bin_window_passes(torch.from_numpy(disp), r, n_bins, plane).numpy()
+    spans = range_window_passes(torch.from_numpy(disp), r, n_bins, plane).numpy()
+    assert (ranked <= spans).all()
+    assert (want > 2).any() if count == "range" else (ranked < spans).any()
+    if with_valid:
+        # without a plane, the weight-0 pixels count again
+        assert (counter(torch.from_numpy(disp), r, n_bins).numpy() >= want).all()

@@ -6,12 +6,16 @@
 
 Without arguments: builds csrc/wmf.cu once per variant of its -D knobs
 (tile height TH, bin window NB, look-ahead U; the first variant is the
-shipped default), runs each on three inputs of chip_smoke.py's shapes (the
+shipped default), runs each on four inputs of chip_smoke.py's shapes (the
 Teddy frame's output, the 2K frame's WTA output, uniformly random
-disparities at 2K), requires 0 pixels differing from the plain version, and
-prints CUDA-event times.
+disparities at 2K, the WTA output of a gif_zed2k.clutter pool frame),
+requires 0 pixels differing from the plain version, and prints CUDA-event
+times and each input's passes over the window offsets a block
+(chip_smoke.wmf_passes: over each tile's range, ranked, and the share of
+blocks whose passes the ranks cut).
 
-`valid`: the participation-weight entry (`psm_joint_wmf_valid`) at the
+`valid`: the valid-less entry on the same four inputs, then the
+participation-weight entry (`psm_joint_wmf_valid`) at the
 (1,2,2) mesh's JointWMF tile (chip_smoke.WMF_TILES["y2"]) on the zero-halo,
 fractional and all-ones planes (chip_smoke.wmf_valid_planes, from the 2K
 frame's WTA output) and on the zero-halo plane times 0.99999994f (the same
@@ -88,6 +92,8 @@ def inputs(dev):
     yield "2k 2x1242x2208, 256 bins, WTA output", disp, g8, 256
     rnd = np.random.default_rng(3).integers(0, 256, tuple(disp.shape), dtype=np.uint8)
     yield "2k 2x1242x2208, 256 bins, random", torch.as_tensor(rnd, device=dev), g8, 256
+    yield ("2k 2x1242x2208, 256 bins, WTA output of a gif_zed2k.clutter pool frame",
+           *cs.clutter_2k(dev, cfg2), 256)
 
 
 def run_valid(fn, disp, guide, valid, radius, n_bins, sigma=25.5):
@@ -128,19 +134,29 @@ def main_valid(dev, baseline: str | None) -> int:
                 line += (f"; {dyn} B dynamic shared memory, {blocks_per_sm(valid, 9)} blocks an "
                          f"SM (occupancy calculator)")
             print(line, flush=True)
-    _, disp2k, g2k, n_bins = list(inputs(dev))[1]
+    order = list(builds) + list(builds)[::-1]
+    ins = list(inputs(dev))
+    for name, d, g, n_bins in ins:
+        want = K.weighted_median_plain(d, g, 9, n_bins, 25.5)
+        print(f"{name}: {cs.passes_text(cs.wmf_passes(d, 9, n_bins))}", flush=True)
+        for tag in order:
+            fw = fns[tag, "wmf"]
+            if int((run(fw, d, g, 9, n_bins) != want).sum()):
+                raise AssertionError(f"{tag} differs from the plain version on {name}")
+            ms = cs.cuda_ms(lambda: run(fw, d, g, 9, n_bins), iters=20, warmup=3)
+            print(f"  {tag}: valid-less {ms:.4f} ms, 0 px differ", flush=True)
+    _, disp2k, g2k, n_bins = ins[1]
     planes = cs.wmf_valid_planes(dev, disp2k, g2k, cs.WMF_TILES["y2"], 9, n_bins,
                                  np.random.default_rng(13))
     d, g, v = planes["zero_halos"]
     planes["zero_halos_mul"] = (d, g, v * 0.99999994)
-    order = list(builds) + list(builds)[::-1]
     for kind in ("zero_halos", "zero_halos_mul", "fractional", "ones"):
         d, g, v = planes[kind]
         want = K.weighted_median_plain(d, g, 9, n_bins, 25.5, v)
         want_less = K.weighted_median_plain(d, g, 9, n_bins, 25.5)
         unit = float(K.wmf.unit_plane_blocks(v, 9).double().mean())
-        print(f"{kind} {tuple(d.shape)}, 256 bins, {unit:.1%} of blocks on the unit path:",
-              flush=True)
+        print(f"{kind} {tuple(d.shape)}, 256 bins, {unit:.1%} of blocks on the unit path; "
+              f"{cs.passes_text(cs.wmf_passes(d, 9, n_bins, v))}:", flush=True)
         for tag in order:
             fv, fw = fns[tag, "wmf_valid"], fns[tag, "wmf"]
             n_diff = int((run_valid(fv, d, g, v, 9, n_bins) != want).sum())
@@ -166,7 +182,7 @@ def main() -> int:
     fns = build_variants()
     for name, disp, guide, n_bins in inputs(dev):
         want = K.weighted_median_plain(disp, guide, 9, n_bins, 25.5)
-        print(name, flush=True)
+        print(f"{name}: {cs.passes_text(cs.wmf_passes(disp, 9, n_bins))}", flush=True)
         for (th, nb, u), fn in fns.items():
             n_diff = int((run(fn, disp, guide, 9, n_bins) != want).sum())
             ms = cs.cuda_ms(lambda: run(fn, disp, guide, 9, n_bins), iters=10, warmup=2)
