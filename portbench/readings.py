@@ -71,7 +71,7 @@ def main(argv=None) -> int:
     for seed in controls:
         emit({"reading": "bf16", "seed": seed, "numbers": control_bf16(args.workload, seed, dev)})
         r = run.run_cell(args.workload, seed, args.seconds, False,
-                         gif_overrides={"cvc_dtype": "u8"})
+                         overrides={"cvc_dtype": "u8"})
         emit({"reading": "u8_cost", "seed": seed, "correct": r["correct"],
               "checks": r["checks"]})
     if args.out:

@@ -3,19 +3,23 @@
     python -m portbench --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 A cell (`portbench/workloads/<cell>.json`) names a configuration
-(`portbench/configs/<config>.json`), its loop and its scenes. The run makes
-the cell's pool of camera frames on the card from the seed and keeps it on
-the host as uint8, builds `primestereomatch_torch.app.StereoMatchApp` for the
-configuration, warms the stream up on the pool, and then hands the app its
-frames for `--seconds` through `StereoMatchApp.stream`, the port's video
-path: as fast as the app asks (closed loop) or at the camera's rate (open
-loop). It times each frame from outside, from the moment the source handed
-it (closed) or it was due (open) to the moment the stream yielded its result.
+(`portbench/configs/<config>.json`), its loop and its scenes. The
+configuration names its `algorithm` and holds its parameters in the block
+that the algorithm's name gives (`reference.block_key`: STEREO_GIF's "gif",
+STEREO_SGBM's "sgbm"). The run makes the cell's pool of camera frames on the
+card from the seed and keeps it on the host as uint8, builds
+`primestereomatch_torch.app.StereoMatchApp` for the configuration, warms the
+stream up on the pool, and then hands the app its frames for `--seconds`
+through `StereoMatchApp.stream`, the port's video path: as fast as the app
+asks (closed loop) or at the camera's rate (open loop). It times each frame
+from outside, from the moment the source handed it (closed) or it was due
+(open) to the moment the stream yielded its result.
 
-After the window the program's state is freed and the plain reference
-(`portbench/reference/`) works out again, from the same raw frames, the
-outputs of a sample of the window's frames drawn from the seed; `correct`
-holds each number compared to its limit in the configuration's `correct`.
+After the window the program's state is freed and the plain reference of the
+configuration's algorithm (`portbench/reference/<block>.py`) works out
+again, from the same raw frames, the outputs of a sample of the window's
+frames drawn from the seed; `correct` holds each number compared to its
+limit in the configuration's `correct`.
 
 `--trace 0` prints the cell's end-to-end metrics, `--trace 1` its per-layer
 metrics, each read by its own file under `portbench/metrics/` from a
@@ -58,10 +62,18 @@ def mark(phase: str) -> None:
 
 def load_cell(name: str, root: pathlib.Path = ROOT) -> dict:
     """The cell's workload, its configuration and the metrics that
-    BENCHMARK.json gives it, each found by name."""
+    BENCHMARK.json gives it, each found by name; raises where the
+    configuration's algorithm has no parameter block or no reference."""
+    from portbench import reference
+
     bench = json.loads((root / "BENCHMARK.json").read_text())
     work = json.loads((root / "portbench" / "workloads" / f"{name}.json").read_text())
     cfg = json.loads((root / "portbench" / "configs" / f"{work['config']}.json").read_text())
+    key = reference.block_key(cfg["algorithm"])
+    if key not in cfg:
+        raise KeyError(f"configuration {work['config']} runs {cfg['algorithm']} but has no "
+                       f"{key!r} block of its parameters")
+    reference.algorithm(cfg, root)
 
     def mine(metrics):
         return [m for m in metrics if name in m.get("workloads", [name])]
@@ -140,28 +152,37 @@ def make_pool(cell: dict, seed: int, dev) -> list:
     return scene.make_pool(cfg, cell["workload"], seed, dev, rectification(cell), calib_data)
 
 
-def build_app(cell: dict, device, gif_overrides: dict | None = None):
-    """`StereoMatchApp` for the configuration, in video mode; raises where
-    the app would not run the configuration's parameters."""
+def build_app(cell: dict, device, overrides: dict | None = None):
+    """`StereoMatchApp` for the configuration, in video mode, running its
+    algorithm; raises where the app's `<block>_cfg` would not hold every
+    parameter of the configuration's block. `overrides` replace fields of
+    that `<block>_cfg` (the program's own control paths)."""
     import dataclasses
 
+    from portbench import reference
     from primestereomatch_torch.app import AppConfig, StereoMatchApp
 
     cfg, root = cell["config"], cell["root"]
-    gif = cfg["gif"]
+    key = reference.block_key(cfg["algorithm"])
+    block = cfg[key]
+    # the app's own settings: the disparity range (SGBM's num_disparities),
+    # and GIF's subsample and median size
+    sizes = {k: block[k] for k in ("max_dis", "subsample", "med_sz") if k in block}
+    if "num_disparities" in block:
+        sizes["max_dis"] = block["num_disparities"]
     app = StereoMatchApp(AppConfig(
-        alg=cfg["algorithm"], media_mode="video", max_dis=gif["max_dis"],
-        subsample=gif["subsample"], med_sz=gif["med_sz"],
+        alg=cfg["algorithm"], media_mode="video", **sizes,
         calib_dir=str(root / cfg["calib_dir"]) if cfg["calib_dir"] else None,
         calib_size=tuple(cfg["calib_size"] or (1280, 720)), device=device))
     app.set_parallelism(cfg["host_threads"])
-    if gif_overrides:
-        app.gif_cfg = dataclasses.replace(app.gif_cfg, **gif_overrides)
-    ran = dataclasses.asdict(app.gif_cfg)
-    differ = {k: (v, ran.get(k)) for k, v in gif.items()
-              if k not in (gif_overrides or {}) and ran.get(k) != v}
+    attr = f"{key}_cfg"
+    if overrides:
+        setattr(app, attr, dataclasses.replace(getattr(app, attr), **overrides))
+    ran = dataclasses.asdict(getattr(app, attr))
+    differ = {k: (v, ran.get(k, "no such field")) for k, v in block.items()
+              if k not in (overrides or {}) and (k not in ran or ran[k] != v)}
     if differ:
-        raise RuntimeError(f"the app runs {differ} (configuration, app)")
+        raise RuntimeError(f"the app's {attr} runs {differ} (configuration, app)")
     return app
 
 
@@ -176,7 +197,14 @@ def drive(app, source, span, on_result) -> list[float]:
     try:
         while True:
             with span("portbench.app_next"):
-                res = next(gen, None)
+                try:
+                    res = next(gen, None)
+                except RuntimeError as e:
+                    # the stream's compute() fallback (every algorithm but
+                    # STEREO_GIF) lets the source's end escape it (PEP 479)
+                    if not isinstance(e.__cause__, StopIteration):
+                        raise
+                    res = None
             if res is None:
                 break
             with span("portbench.harness"):
@@ -224,7 +252,8 @@ def reference_outputs(cell: dict, pool, wanted, dev, dtype=None) -> dict:
 
     rect = rectification(cell)
     return {i: reference.outputs(cell["config"], *eyes(pool[i]), dev, rect,
-                                 dtype or torch.float32) for i in sorted(set(wanted))}
+                                 dtype or torch.float32, cell["root"])
+            for i in sorted(set(wanted))}
 
 
 def compare(limits: dict, got: dict, want: dict) -> dict:
@@ -254,12 +283,13 @@ def judge(cell: dict, pool, samples: dict, indices, dev) -> dict:
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
-             root: pathlib.Path = ROOT, gif_overrides: dict | None = None,
+             root: pathlib.Path = ROOT, overrides: dict | None = None,
              log=print) -> dict:
     """One run; returns the result line's object. `device=None` is the
     card; the tests pass "cpu" to drive the rest of a run without one."""
     import torch
 
+    from portbench import reference
     from portbench import trace as tr
     from portbench.traffic import sources
 
@@ -281,7 +311,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
 
-    app = build_app(cell, "cuda" if device is None else device, gif_overrides)
+    app = build_app(cell, "cuda" if device is None else device, overrides)
     mark("app")
     no_span = sources._no_span
     drive(app, sources.ClosedSource(pool, limit=WARMUP_FRAMES), no_span, lambda k, r: None)
@@ -300,6 +330,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         profiling, span = prof, record_function
 
+    counts_before = dict(app.stream_counts)
     with profiling:
         t0 = time.perf_counter()
         setup_s = t0 - T_START
@@ -315,7 +346,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
             sync()
     t_end = t0 + window
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-    gif_cfg = app.gif_cfg
+    counts = {k: v - counts_before.get(k, 0) for k, v in app.stream_counts.items()}
+    key = reference.block_key(cfg["algorithm"])
+    ran_cfg, max_dis = getattr(app, f"{key}_cfg"), app.cfg.max_dis
     del app
     sync()
     if cuda:
@@ -338,18 +371,22 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
                 metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
     else:
         device_rows, host_rows = tr.from_profiler(prof.events())
-        win = [r for r in host_rows if r[0] == tr.WINDOW_SPAN][0]
-        gif = cfg["gif"]
+        _, lo, hi = next(r for r in host_rows if r[0] == tr.WINDOW_SPAN)
         H, W = first_out[next(iter(first_out))].shape[1:] if first_out else (0, 0)
+        geometry = {"H": H, "W": W, "D": max_dis}
+        if key == "gif":
+            gif = cfg["gif"]
+            geometry.update(s=gif["subsample"], k=2 * (gif["gif_radius"] // gif["subsample"]) + 1,
+                            radius=gif["med_sz"] // 2)
         w = tr.Window(
-            frames=completed, window_s=(win[2] - win[1]) / 1e6, lo_us=win[1], hi_us=win[2],
-            device=device_rows, host=host_rows,
-            geometry={"H": H, "W": W, "D": gif["max_dis"], "s": gif["subsample"],
-                      "k": 2 * (gif["gif_radius"] // gif["subsample"]) + 1,
-                      "radius": gif["med_sz"] // 2},
+            frames=completed, window_s=(hi - lo) / 1e6, lo_us=lo, hi_us=hi,
+            device=device_rows, host=host_rows, geometry=geometry,
             port_kernels=tr.port_kernel_names(root / "primestereomatch_torch"),
             k3_outputs=[first_out[source.index[k]] for k in range(completed)],
-            source_blocked_ms=blocked_ms(source, yields))
+            source_blocked_ms=blocked_ms(source, yields), config=cfg,
+            program=[r for r in host_rows
+                     if r[0].startswith(tr.PROGRAM_PREFIX) and lo <= r[1] and r[2] <= hi],
+            counts=counts, latency_ms=lat_ms)
         for m in cell["per_layer"]:
             value = load_metric(m["name"], root).read(w)
             if value is not None:
@@ -372,7 +409,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
     checks["frames_missing"] = {"value": attempted - completed, "limit": 0}
     log(f"portbench {name} seed {seed}: {completed} of {attempted} frames in "
         f"{window:g} s, setup {setup_s:.3f} s, peak device memory {peak} B, "
-        f"{len(samples)} frames checked; app config {gif_cfg}", file=sys.stderr)
+        f"{len(samples)} frames checked; app config {ran_cfg}", file=sys.stderr)
     log("setup phases, s from the start: "
         + ", ".join(f"{k} {v:.3f}" for k, v in SETUP_MARKS.items()), file=sys.stderr)
     for k, v in checks.items():

@@ -1,8 +1,9 @@
-"""The program's `psm.*` spans change nothing the benchmark reads: the
-program records them as plain CPU ops with no mirror among the device's
-events, so `trace.from_profiler` leaves them out of the device rows and out
-of the benchmark's spans, and every per-layer reader reads what it read
-without them."""
+"""The program's `psm.*` spans: the program records them as plain CPU ops
+with no mirror among the device's events, so `trace.from_profiler` keeps
+their host side and leaves the device rows as they are without them; every
+reader of the device rows and the benchmark's spans reads what it read
+without them, and the readers of the program's spans and counter read the
+arithmetic of `trace_stream.py::summarize`."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import json
 import types
 
 import numpy as np
+import pytest
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -55,23 +57,53 @@ def test_every_reader_reads_the_same_with_and_without_program_spans():
         t = 500.0 * f
         program += [event("psm.stream.read", t + 1.0, t + 2.0),
                     event("psm.stream.dispatch", t + 2.0, t + 30.0),
+                    event("psm.rectify", t + 3.0, t + 7.0),
                     event("psm.gif.forward", t + 8.0, t + 28.0),
                     event("psm.stream.wait", t + 31.0, t + 420.0),
                     event("psm.stream.fetch", t + 420.0, t + 440.0)]
-    plain, spanned = trace.from_profiler(base), trace.from_profiler(base + program)
-    assert spanned == plain
-    device, host = spanned
-    assert not [r for r in device + host if r[0].startswith("psm.")]
+    (plain_dev, plain_host), (device, host) = (trace.from_profiler(base),
+                                               trace.from_profiler(base + program))
+    assert device == plain_dev
+    assert not [r for r in device + plain_host if r[0].startswith("psm.")]
+    rows = [r for r in host if r[0].startswith("psm.")]
+    assert [r for r in host if r not in rows] == plain_host
+    assert rows == [(e.name, e.time_range.start, e.time_range.end) for e in program]
     rng = np.random.default_rng(0)
     geometry = {"H": 16, "W": 32, "D": 16, "s": 4, "k": 5, "radius": 9}
-    window = dict(frames=2, window_s=1e-3, lo_us=0.0, hi_us=1000.0, host=host, geometry=geometry,
+    window = dict(frames=2, window_s=1e-3, lo_us=0.0, hi_us=1000.0, geometry=geometry,
                   port_kernels=(k2, k3, k4),
                   k3_outputs=[rng.integers(0, 16, (2, 16, 32), dtype=np.uint8)] * 2,
-                  source_blocked_ms=[0.0, 0.0])
+                  source_blocked_ms=[0.0, 0.0], config=run.load_cell("gif_zed2k.max")["config"],
+                  latency_ms=[20.0, 22.0])
+    without = trace.Window(device=plain_dev, host=plain_host, **window)
+    spanned = trace.Window(device=device, host=host, program=rows,
+                           counts={"frames": 2, "ready_at_wait": 1}, **window)
     for m in BENCH["per_layer"]:
         reader = run.load_metric(m["name"])
-        want = reader.read(trace.Window(device=plain[0], **window))
-        got = reader.read(trace.Window(device=device, **window))
-        assert got == want, m["name"]
-    assert trace.Window(device=device, **window).breakdown() == \
-        trace.Window(device=plain[0], **window).breakdown()
+        want = reader.read(without)
+        if want is not None:
+            assert reader.read(spanned) == want, m["name"]
+        else:   # a reader of the program's spans or counter
+            assert reader.read(spanned) is not None, m["name"]
+    assert spanned.breakdown() == without.breakdown()
+
+
+def test_the_program_readers_read_trace_streams_arithmetic():
+    """The hand-made window of `trace_stream.py`'s own test: self time less
+    nested children, host ms a frame, readiness; none without the rows."""
+    rows = [("psm.stream.dispatch", 0.0, 30.0), ("psm.gif.forward", 5.0, 25.0),
+            ("psm.gif.wmf", 10.0, 20.0), ("psm.stream.fetch", 30.0, 40.0),
+            ("psm.stream.dispatch", 50.0, 80.0), ("psm.rectify", 52.0, 55.0),
+            ("psm.gif.forward", 55.0, 75.0), ("psm.stream.fetch", 80.0, 90.0)]
+    window = dict(frames=2, window_s=1e-4, lo_us=0.0, hi_us=100.0, device=[], host=[],
+                  geometry={}, port_kernels=(), k3_outputs=[], source_blocked_ms=[])
+    w = trace.Window(program=rows, counts={"frames": 2, "ready_at_wait": 1}, **window)
+    want = {"stream_host_ms": (10 + 7 + 10 + 10) / 2e3, "gif_dispatch_ms": 20 / 1e3,
+            "rectify_host_ms": 1.5 / 1e3, "frames_ready_at_wait_pct": 50.0}
+    for name, value in want.items():
+        assert run.load_metric(name).read(w) == pytest.approx(value), name
+        assert run.load_metric(name).read(trace.Window(**window)) is None, name
+    assert w.program_ms("psm.gif.forward", own=True) == pytest.approx((10 + 20) / 2e3)
+    no_frames = trace.Window(program=rows, counts={"frames": 0, "ready_at_wait": 0},
+                             **dict(window, frames=0))
+    assert all(run.load_metric(n).read(no_frames) is None for n in want)

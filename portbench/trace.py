@@ -1,11 +1,13 @@
-"""The traced window: the profiler's device events and the benchmark's spans.
+"""The traced window: the profiler's device events, the benchmark's spans
+and the program's.
 
 `Window` holds what a per-layer metric reads: the device's kernels and
 copies (name, start, end in microseconds on the profiler's clock), the
-benchmark's own annotations on the same clock, the frames the window
-completed, its length, the frame's geometry and the port's kernel names.
-Each metric file under `portbench/metrics/` reads it; the harness never
-needs to know what a metric reads.
+benchmark's own annotations and the program's `psm.*` spans on the same
+clock, the change of the app's counters over the window, the frames the
+window completed, its length, the configuration, the frame's geometry and
+the port's kernel names. Each metric file under `portbench/metrics/` reads
+it; the harness never needs to know what a metric reads.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ HOST_SPANS = (("portbench.source_next", "app in the source's next"),
               ("portbench.app_next", "app: dispatch, wait, fetch"),
               ("portbench.harness", "harness between frames"))
 WINDOW_SPAN = "portbench.window"
+# the program's spans (primestereomatch_torch/utils/profiling.py::span)
+PROGRAM_PREFIX = "psm."
 
 
 def port_kernel_names(package_dir: pathlib.Path) -> tuple[str, ...]:
@@ -52,6 +56,21 @@ def union_us(intervals: np.ndarray) -> float:
     return float((run_ends - starts).sum())
 
 
+def self_us(rows) -> list:
+    """Each row's length less its direct children's (rows of one thread
+    nest: a child starts and ends inside its parent)."""
+    order = sorted(range(len(rows)), key=lambda i: (rows[i][1], -rows[i][2]))
+    own = [e - s for _, s, e in rows]
+    stack: list[int] = []
+    for i in order:
+        while stack and rows[stack[-1]][2] <= rows[i][1]:
+            stack.pop()
+        if stack:
+            own[stack[-1]] -= rows[i][2] - rows[i][1]
+        stack.append(i)
+    return own
+
+
 def idle_gaps(intervals: np.ndarray, lo: float, hi: float) -> np.ndarray:
     """(start, end) rows of the device's idle time within [lo, hi]."""
     if not len(intervals):
@@ -74,11 +93,20 @@ class Window:
     lo_us: float                     # its bounds on the profiler's clock
     hi_us: float
     device: list                     # (name, start_us, end_us) kernels and copies
-    host: list                       # (name, start_us, end_us) the benchmark's spans
-    geometry: dict                   # H, W (the matched frame), D, s, k, radius
+    host: list                       # (name, start_us, end_us) the benchmark's spans (and
+                                     # the program's, as `from_profiler` gives them)
+    geometry: dict                   # H, W (the matched frame), D; GIF's s, k, radius
     port_kernels: tuple              # the program's __global__ names
-    k3_outputs: list                 # each traced frame's (2, H, W) JointWMF output
+    k3_outputs: list                 # each traced frame's (2, H, W) disparities, as the app
+                                     # hands them (for GIF, K3's JointWMF output)
     source_blocked_ms: list          # each frame's share of its latency spent in the source
+    # the configuration as its file holds it
+    config: dict = dataclasses.field(default_factory=dict)
+    # (name, start_us, end_us) the host side of the program's psm.* spans inside the window
+    program: list = dataclasses.field(default_factory=list)
+    counts: dict | None = None       # the change of the app's `stream_counts` over the window
+    # each frame's latency in ms, as the untraced window's frame_p50_ms and frame_p95_ms take it
+    latency_ms: list = dataclasses.field(default_factory=list)
 
     def _arr(self, rows) -> np.ndarray:
         return np.array([(s, e) for _, s, e in rows], dtype=np.float64).reshape(-1, 2)
@@ -90,6 +118,16 @@ class Window:
         """Device ms of the kernels that hold one of `names`, summed."""
         pat = kernel_pattern(names)
         return sum(e - s for n, s, e in self.kernels() if pat.search(n)) / 1e3
+
+    def program_ms(self, name: str, own: bool = False) -> float | None:
+        """Host ms a frame of the program's span `name` in the window, whole
+        or (`own`) less its direct program children; None where the window
+        holds none of it or no frame."""
+        if not self.frames:
+            return None
+        lengths = self_us(self.program) if own else [e - s for _, s, e in self.program]
+        mine = [t for (n, _, _), t in zip(self.program, lengths) if n == name]
+        return sum(mine) / 1e3 / self.frames if mine else None
 
     def busy_s(self) -> float:
         return union_us(self._arr(self.device)) / 1e6
@@ -119,8 +157,9 @@ class Window:
 
 
 def from_profiler(events) -> tuple[list, list]:
-    """The device rows and the benchmark's spans (the window's among them)
-    of a `torch.profiler` event list."""
+    """The device rows, and the host rows of the benchmark's spans (the
+    window's among them) and of the program's `psm.*` spans, of a
+    `torch.profiler` event list."""
     from torch.autograd import DeviceType
 
     device, host = [], []
@@ -134,4 +173,7 @@ def from_profiler(events) -> tuple[list, list]:
                 host.append(row)
         elif e.device_type == DeviceType.CUDA:
             device.append(row)
+        elif e.name.startswith(PROGRAM_PREFIX) and e.device_type == DeviceType.CPU:
+            # the program's spans are CPU ops with no device mirror
+            host.append(row)
     return device, host
