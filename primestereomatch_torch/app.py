@@ -35,6 +35,7 @@ from primestereomatch_torch.models import (
     stereo_gif_forward,
     stereo_sgbm_forward,
 )
+from primestereomatch_torch.ops.sgbm import SPECKLE_SWEEPS
 from primestereomatch_torch.utils.datasets import (
     DATASETS,
     MASK_DISC,
@@ -60,6 +61,10 @@ SPAN_READ = "psm.stream.read"          # the call into the source
 SPAN_DISPATCH = "psm.stream.dispatch"  # staging, upload, scale, forward, result copies, event
 SPAN_WAIT = "psm.stream.wait"          # the host blocked on frame n's event
 SPAN_FETCH = "psm.stream.fetch"        # copies out of the pinned slots, the FrameResult
+# compute()'s host spans (it opens SPAN_READ too): its pageable uploads, and
+# the results' and matched frames' conversion to host arrays
+SPAN_UPLOAD = "psm.compute.upload"
+SPAN_COMPUTE_FETCH = "psm.compute.fetch"
 
 
 @dataclasses.dataclass
@@ -133,8 +138,9 @@ class StereoMatchApp:
         self._rectifier = None
         self._sgbm_mode = "hh"
         # stream()'s frames fetched, and those whose event had completed
-        # when the host came to wait (the device idle before the host)
-        self.stream_counts = {"frames": 0, "ready_at_wait": 0}
+        # when the host came to wait (the device idle before the host); the
+        # K9 sweeps the speckle filter of every SGBM frame ran (compute())
+        self.stream_counts = {"frames": 0, "ready_at_wait": 0, "speckle_sweeps": 0}
 
         if cfg.media_mode == "image":
             if cfg.left:
@@ -268,8 +274,11 @@ class StereoMatchApp:
         times: dict[str, float] = {}
         t_total = time.perf_counter()
 
-        l_in, r_in = self._read()
-        l_u8, r_u8 = self._rectify(*(_as_device_u8(x, self.device) for x in (l_in, r_in)))
+        with span(SPAN_READ):
+            l_in, r_in = self._read()
+        with span(SPAN_UPLOAD):
+            l_dev, r_dev = (_as_device_u8(x, self.device) for x in (l_in, r_in))
+        l_u8, r_u8 = self._rectify(l_dev, r_dev)
 
         if self.cfg.alg == "STEREO_GIF":
             l_f, r_f = self._gif_inputs(l_u8, r_u8)
@@ -291,15 +300,19 @@ class StereoMatchApp:
                 times.update({k: v.last_ms for k, v in t.stages.items()})
             else:
                 ld, rd = stereo_gif_forward(l_f, r_f, self.gif_cfg, device=self.gif_device)
-            l_disp, r_disp = _to_numpy(ld), _to_numpy(rd)
         else:  # STEREO_SGBM
+            sweeps = SPECKLE_SWEEPS["count"]
             d16 = stereo_sgbm_forward(l_u8, r_u8, self.sgbm_cfg, device=self.device)
-            l_disp = _to_numpy(sgbm_display_u8(d16, 1, self.cfg.max_dis))
-            r_disp = np.zeros_like(l_disp)  # the reference's SGBM is left-only
-        # the matched frames: the host frames themselves, or the rectified
-        # crops fetched with the disparities
-        if self.cfg.calib_dir:
-            l_in, r_in = _to_numpy(l_u8), _to_numpy(r_u8)
+            self.stream_counts["speckle_sweeps"] += SPECKLE_SWEEPS["count"] - sweeps
+            ld, rd = sgbm_display_u8(d16, 1, self.cfg.max_dis), None
+        with span(SPAN_COMPUTE_FETCH):
+            l_disp = _to_numpy(ld)
+            # the reference's SGBM is left-only
+            r_disp = np.zeros_like(l_disp) if rd is None else _to_numpy(rd)
+            # the matched frames: the host frames themselves, or the rectified
+            # crops fetched with the disparities
+            if self.cfg.calib_dir:
+                l_in, r_in = _to_numpy(l_u8), _to_numpy(r_u8)
 
         times["total"] = (time.perf_counter() - t_total) * 1e3
 
@@ -350,10 +363,15 @@ class StereoMatchApp:
         "ready_at_wait" where its event had completed before the host came
         to wait (always on the CPU, which has no event). While a profiler
         runs, each frame records the SPAN_* spans above; frames pair with
-        their spans by order, as no span is open across a yield."""
+        their spans by order, as no span is open across a yield. Either way
+        the stream ends where the source ends."""
         if self.cfg.alg != "STEREO_GIF" or self.cfg.timed:
             for _ in range(frames):
-                yield self.compute()
+                try:
+                    res = self.compute()
+                except StopIteration:       # the source's end, from compute()'s read
+                    return
+                yield res
             return
 
         cuda = self.device.type == "cuda"

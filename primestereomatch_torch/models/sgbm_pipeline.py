@@ -31,6 +31,16 @@ from primestereomatch_torch.kernels import (
 )
 from primestereomatch_torch.ops.sgbm import DISP_SCALE, filter_speckles, sobel_xclip
 from primestereomatch_torch.utils.device import resolve_device
+from primestereomatch_torch.utils.profiling import span
+
+# the SGBM entry's host spans (utils/profiling.py::span), its stages in order
+# inside SPAN_FORWARD
+SPAN_FORWARD = "psm.sgbm.forward"
+SPAN_PREFILTER = "psm.sgbm.prefilter"    # both views' sobel_xclip
+SPAN_COST = "psm.sgbm.cost"              # K6
+SPAN_AGGREGATE = "psm.sgbm.aggregate"    # K7
+SPAN_SELECT = "psm.sgbm.select"          # K8
+SPAN_SPECKLE = "psm.sgbm.speckle"        # K9's sweeps, their host checks, the areas
 
 
 def _as_u8(x, dev: torch.device) -> torch.Tensor:
@@ -50,34 +60,41 @@ def stereo_sgbm_forward(
 ) -> torch.Tensor:
     """Returns (H, W) int16 disparity x 16 on `device` (default: the CUDA
     card; raises if there is none). Invalid pixels are
-    (min_disparity - 1) * 16."""
-    dev = resolve_device(device)
-    left, right = _as_u8(l_img_u8, dev), _as_u8(r_img_u8, dev)
-    if left.shape != right.shape:
-        raise ValueError(f"expected matching (H, W, C) images, got {tuple(left.shape)} "
-                         f"vs {tuple(right.shape)}")
-    ch = left.shape[2]
-    if ch != cfg.num_channels:
-        raise ValueError(f"images have {ch} channels, the config {cfg.num_channels}")
-    l_ftr = sobel_xclip(left, cfg.pre_filter_cap)
-    r_ftr = sobel_xclip(right, cfg.pre_filter_cap)
-    # static bound on the window cost (BT per channel <= 2 * cap): int16
-    # volumes when it fits, as in the JAX pipeline
-    cost_bound = cfg.block_size**2 * ch * 2 * cfg.pre_filter_cap
-    C = bt_cost(l_ftr, r_ftr, cfg.num_disparities, cfg.block_size, cost_bound)
-    # two uint16 group partials where the bound allows (S is never formed),
-    # else the int32 S as the only partial
-    parts = sgbm_aggregate_partials(C, cfg.p1, cfg.p2, cfg.num_directions, cost_bound)
-    del C
-    disp16 = select_disparity_partials(parts, cfg.uniqueness_ratio, cfg.disp12_max_diff,
-                                       cfg.min_disparity)
-    del parts
-    if cfg.speckle_window_size > 0:
-        disp16 = filter_speckles(
-            disp16, cfg.speckle_window_size, DISP_SCALE * cfg.speckle_range,
-            (cfg.min_disparity - 1) * DISP_SCALE,
-        )
-    return disp16
+    (min_disparity - 1) * 16. While a profiler runs, records SPAN_FORWARD
+    around the call and each stage's span inside it."""
+    with span(SPAN_FORWARD):
+        dev = resolve_device(device)
+        left, right = _as_u8(l_img_u8, dev), _as_u8(r_img_u8, dev)
+        if left.shape != right.shape:
+            raise ValueError(f"expected matching (H, W, C) images, got {tuple(left.shape)} "
+                             f"vs {tuple(right.shape)}")
+        ch = left.shape[2]
+        if ch != cfg.num_channels:
+            raise ValueError(f"images have {ch} channels, the config {cfg.num_channels}")
+        with span(SPAN_PREFILTER):
+            l_ftr = sobel_xclip(left, cfg.pre_filter_cap)
+            r_ftr = sobel_xclip(right, cfg.pre_filter_cap)
+        # static bound on the window cost (BT per channel <= 2 * cap): int16
+        # volumes when it fits, as in the JAX pipeline
+        cost_bound = cfg.block_size**2 * ch * 2 * cfg.pre_filter_cap
+        with span(SPAN_COST):
+            C = bt_cost(l_ftr, r_ftr, cfg.num_disparities, cfg.block_size, cost_bound)
+        # two uint16 group partials where the bound allows (S is never formed),
+        # else the int32 S as the only partial
+        with span(SPAN_AGGREGATE):
+            parts = sgbm_aggregate_partials(C, cfg.p1, cfg.p2, cfg.num_directions, cost_bound)
+        del C
+        with span(SPAN_SELECT):
+            disp16 = select_disparity_partials(parts, cfg.uniqueness_ratio,
+                                               cfg.disp12_max_diff, cfg.min_disparity)
+        del parts
+        if cfg.speckle_window_size > 0:
+            with span(SPAN_SPECKLE):
+                disp16 = filter_speckles(
+                    disp16, cfg.speckle_window_size, DISP_SCALE * cfg.speckle_range,
+                    (cfg.min_disparity - 1) * DISP_SCALE,
+                )
+        return disp16
 
 
 def sgbm_display_u8(disp16: torch.Tensor, scale_factor: int, max_dis: int,

@@ -315,8 +315,10 @@ def speckle_graph(disp16: torch.Tensor, max_diff: int, invalid_value: int):
 
 
 # convergence checks filter_speckles made (each reads one int: a host sync),
-# for the reports of chip_smoke.py
+# for the reports of chip_smoke.py, and the sweeps (K9's) it ran, for the
+# app's `stream_counts`
 SPECKLE_CHECKS = {"count": 0}
+SPECKLE_SWEEPS = {"count": 0}
 
 
 def filter_speckles(
@@ -353,6 +355,7 @@ def filter_speckles(
         for _ in range(steps_per_check):
             labels = speckle_sweep(labels, links, changed, stamp)
         it += steps_per_check
+        SPECKLE_SWEEPS["count"] += steps_per_check
         SPECKLE_CHECKS["count"] += 1
         if int(changed.item()) != stamp:
             break

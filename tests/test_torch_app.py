@@ -195,6 +195,14 @@ def test_app_calibrated_video_matches_jax(calibrated_dir, alg):
             np.testing.assert_array_equal(got.right_bgr, want.right_bgr)
 
 
+def test_sgbm_stream_ends_with_its_source():
+    """The stream's compute() fallback ends where the source ends, as the GIF
+    ring does: no RuntimeError from the source's StopIteration."""
+    _, pa = _apps(alg="STEREO_SGBM", media_mode="video", max_dis=16, mask_mode="none")
+    pa._source = _synthetic(n=3, w=96, h=48)
+    assert [r.frame_index for r in pa.stream(10)] == [0, 1, 2]
+
+
 # ---- setters and keys --------------------------------------------------------------------
 
 @pytest.fixture()

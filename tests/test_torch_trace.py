@@ -12,7 +12,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from primestereomatch_torch import GIFConfig, app, cli, hci, stereo_gif_forward
-from primestereomatch_torch.models import gif_pipeline
+from primestereomatch_torch.models import gif_pipeline, sgbm_pipeline
+from primestereomatch_torch.ops import sgbm as sgbm_ops
 from primestereomatch_torch.utils import profiling
 from primestereomatch_torch.utils.png import write_png
 from primestereomatch_torch.utils.video import SyntheticZEDSource
@@ -22,6 +23,10 @@ N = 3                       # frames a stream
 NEXT = "test.next"          # the consumer's span around each next()
 STREAM = ("psm.stream.read", "psm.stream.dispatch", "psm.stream.wait", "psm.stream.fetch")
 GIF_STAGES = ("psm.gif.prep", "psm.gif.cost_maps", "psm.gif.wta", "psm.gif.wmf")
+SGBM_STAGES = ("psm.sgbm.prefilter", "psm.sgbm.cost", "psm.sgbm.aggregate", "psm.sgbm.select",
+               "psm.sgbm.speckle")
+# compute()'s spans of a frame, in order, around the SGBM entry
+COMPUTE = ("psm.stream.read", "psm.compute.upload", "psm.sgbm.forward", "psm.compute.fetch")
 
 
 def _profiled():
@@ -132,11 +137,11 @@ def test_stream_outputs_are_bitwise_equal_under_the_profiler(calib):
 
 def test_stream_counts_every_cpu_frame_ready():
     a = _video_app(False, n=N + 2)
-    assert a.stream_counts == {"frames": 0, "ready_at_wait": 0}
+    assert a.stream_counts == {"frames": 0, "ready_at_wait": 0, "speckle_sweeps": 0}
     assert len(list(a.stream(N))) == N
-    assert a.stream_counts == {"frames": N, "ready_at_wait": N}
+    assert a.stream_counts == {"frames": N, "ready_at_wait": N, "speckle_sweeps": 0}
     assert len(list(a.stream(10))) == 2            # the counter lives as long as the app
-    assert a.stream_counts == {"frames": N + 2, "ready_at_wait": N + 2}
+    assert a.stream_counts == {"frames": N + 2, "ready_at_wait": N + 2, "speckle_sweeps": 0}
 
 
 def test_compute_records_the_rectifier_and_the_gif_entry():
@@ -144,10 +149,57 @@ def test_compute_records_the_rectifier_and_the_gif_entry():
     with _profiled() as prof:
         a.compute()
     rows = _psm(prof)
-    assert _names(rows).count("psm.rectify") == 1
-    assert _names(rows).count("psm.gif.forward") == 1
-    assert not set(_names(rows)) & set(STREAM)      # stream() alone opens those
+    for name in ("psm.rectify", "psm.gif.forward", "psm.stream.read", "psm.compute.upload",
+                 "psm.compute.fetch"):
+        assert _names(rows).count(name) == 1, name
+    assert not set(_names(rows)) & set(STREAM[1:])  # the GIF ring alone opens those
     assert a.stream_counts["frames"] == 0
+
+
+def _sgbm_app(n=N):
+    """An SGBM video app on the CPU over `n` tiny synthetic frames."""
+    a = app.StereoMatchApp(app.AppConfig(alg="STEREO_SGBM", media_mode="video", max_dis=16,
+                                         mask_mode="none", device="cpu"))
+    a._source = SyntheticZEDSource(width=96, height=48, n_frames=n, max_disparity=8,
+                                   smoothing=0)
+    return a
+
+
+def test_sgbm_stream_records_compute_and_the_sgbm_entry():
+    """Each SGBM frame of the stream (its compute() fallback): the read, the
+    upload, the SGBM entry with its five stages in order, the fetch, all inside
+    one next() of the consumer."""
+    a = _sgbm_app()
+    with _profiled() as prof:
+        results = _consume(a.stream(N))
+    assert len(results) == N
+    rows = _psm(prof)
+    top = [(n, up) for n, up, _, _ in rows if not n.startswith("psm.sgbm.") or
+           n == "psm.sgbm.forward"]
+    assert top == [(n, NEXT) for n in COMPUTE] * N
+    assert [n for n, up, _, _ in rows if up == "psm.sgbm.forward"] == list(SGBM_STAGES) * N
+    assert sgbm_pipeline.SPAN_FORWARD == "psm.sgbm.forward"
+
+
+def test_speckle_sweeps_count_the_sweeps_k9_ran(monkeypatch):
+    sweeps = []
+    plain = sgbm_ops.speckle_sweep
+
+    def counted(*args, **kw):
+        sweeps.append(1)
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(sgbm_ops, "speckle_sweep", counted)
+    a = _sgbm_app()
+    before = dict(a.stream_counts)
+    assert len(list(a.stream(N))) == N
+    assert len(sweeps) >= 2 * N
+    assert a.stream_counts == {**before, "speckle_sweeps": before["speckle_sweeps"] + len(sweeps)}
+    a._source = _sgbm_app(1)._source              # compute() alone counts too
+    n = len(sweeps)
+    a.compute()
+    assert len(sweeps) > n
+    assert a.stream_counts["speckle_sweeps"] == before["speckle_sweeps"] + len(sweeps)
 
 
 @pytest.mark.parametrize("over, stages", [
@@ -248,5 +300,5 @@ def test_trace_stream_on_a_small_cpu_cell(tmp_path):
         assert spans[name]["count"] == n, name
     assert spans["psm.stream.read"]["count"] == n + 1       # the read that ends the window
     assert out["stream_host_ms"] > 0 and out["gif_dispatch_ms"] > out["rectify_host_ms"] > 0
-    assert out["stream_counts"] == {"frames": n, "ready_at_wait": n}
+    assert out["stream_counts"] == {"frames": n, "ready_at_wait": n, "speckle_sweeps": 0}
     assert out["frames_ready_at_wait_pct"] == 100.0 and out["program_rows_on_device"] == 0
