@@ -784,15 +784,27 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
         "tried_ms": {f"strip {a}, d_chunk {b}": ms for (a, b), ms in
                      tune_bt_cost.variant_ms(lf, rf, D, k, cost_bound).items()}}
     log(f"design {name} bt_cost: {row['bt_cost']['design']}")
-    # K7, the main path's entry: uint16 group partials, summed here on the
-    # card only to hold them against the plain int32 S
+    # K7, the main path's entry: uint16 group partials, each held against
+    # its plain group, and summed here on the card only to hold them against
+    # the plain int32 S
     parts = K.sgbm_aggregate_partials(cost, cfg.p1, cfg.p2, nd, cost_bound)
     if len(parts) != 2 or any(q.dtype != torch.uint16 for q in parts):
         raise AssertionError(f"expected two uint16 partials at {name}, got "
                              f"{[(q.dtype, tuple(q.shape)) for q in parts]}")
     S = K.sgbm_aggregate_plain(cost, cfg.p1, cfg.p2, nd)
-    check("sgbm_scan", [(sum(q.int() for q in parts), S)],
-          f"(H,W,D)={tuple(S.shape)} {nd} directions, two uint16 partials summed")
+    plain_parts = K.sgbm_aggregate_partials_plain(cost, cfg.p1, cfg.p2, nd, cost_bound)
+    check("sgbm_scan", [(sum(q.int() for q in parts), S)] + list(zip(parts, plain_parts)),
+          f"(H,W,D)={tuple(S.shape)} {nd} directions, two uint16 partials summed and each "
+          f"against its plain group")
+    del plain_parts
+    # its route and, on the sweeps, their plan: strips, their width, warps,
+    # blocks an SM (the cooperative launch's residency); its instances'
+    # registers
+    k7_route = sgbm_scan.route(cost, nd, cost_bound, cfg.p2)
+    row["sgbm_scan"]["design"] = {
+        "route": k7_route, **(sgbm_scan.plan(cost)._asdict() if k7_route == "sweeps" else {}),
+        **tune.resources(_build.BUILD_LOGS.get("sgbm_scan", ""))}
+    log(f"design {name} sgbm_scan: {row['sgbm_scan']['design']}")
     # its int32 path: a P2 beyond the uint16 bound leaves one int32 partial
     p2_wide = 2**16
     wide = K.sgbm_aggregate_partials(cost, cfg.p1, p2_wide, nd, cost_bound)
@@ -883,12 +895,13 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
         f"{sp['hook_plain_ops_device_ms']:.4f} ms; "
         f"the scans alone (axis: ms) {sp['segmin_ms']}; design {sp['design']}")
     # K7's own traffic and the rate that follows; its int32 entry and K8's;
-    # the ring of pixels ahead at four sizes (bytes of shared memory a warp)
+    # the path families' ring of pixels ahead at four sizes (bytes of shared
+    # memory a warp)
     scan, n = row["sgbm_scan"], cost.numel()
-    scan["bytes_per_value"] = sgbm_scan.bytes_per_value(nd, cost.element_size(), True)
+    scan["bytes_per_value"] = sgbm_scan.bytes_per_value(nd, cost.element_size(), k7_route)
     scan["tb_per_s"] = n * scan["bytes_per_value"] / scan["ms"] / 1e9
     scan["int32_ms"] = cuda_ms(lambda: K.sgbm_aggregate(cost, cfg.p1, cfg.p2, nd))
-    scan["int32_bytes_per_value"] = sgbm_scan.bytes_per_value(nd, cost.element_size(), False)
+    scan["int32_bytes_per_value"] = sgbm_scan.bytes_per_value(nd, cost.element_size(), "int32")
     scan["int32_tb_per_s"] = n * scan["int32_bytes_per_value"] / scan["int32_ms"] / 1e9
     row["select"]["int32_ms"] = cuda_ms(lambda: K.select_disparity(S, *sel))
     row["select"]["device_ms"] = profiled_ms(lambda: K.select_disparity_partials(parts, *sel),
@@ -898,10 +911,11 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
     for nbytes in (4096, 8192, 16384, 32768):
         sgbm_scan.RING_BYTES = nbytes
         scan["ring_ms"][nbytes] = cuda_ms(
-            lambda: K.sgbm_aggregate_partials(cost, cfg.p1, cfg.p2, nd, cost_bound), 10, 2)
+            lambda: K.sgbm_aggregate(cost, cfg.p1, cfg.p2, nd), 10, 2)
     sgbm_scan.RING_BYTES = ring
-    # the first 8 image rows alone: where this takes as long as the whole
-    # image, a launch lasts as long as its longest path's chain of steps
+    # the first 8 image rows alone: what a launch takes besides its rows (the
+    # longest path's chain of steps; on the sweeps the W->E chain across the
+    # width)
     few = cost[:8].contiguous()
     scan["rows8_ms"] = cuda_ms(
         lambda: K.sgbm_aggregate_partials(few, cfg.p1, cfg.p2, nd, cost_bound))
@@ -909,10 +923,22 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report):
         f"{scan['tb_per_s']:.3f} TB/s; the int32 S entry {scan['int32_ms']:.4f} ms "
         f"({scan['int32_bytes_per_value']} B, {scan['int32_tb_per_s']:.3f} TB/s); select from "
         f"the int32 S {row['select']['int32_ms']:.4f} ms, from the partials "
-        f"{row['select']['device_ms']:.4f} ms of device time (profiler); ring bytes per warp -> ms "
-        f"{ {k: round(v, 4) for k, v in scan['ring_ms'].items()} } (in use: {ring}); the first "
-        f"8 rows alone {scan['rows8_ms']:.4f} ms")
+        f"{row['select']['device_ms']:.4f} ms of device time (profiler); the int32 entry's "
+        f"ring bytes per warp -> ms {dict((k, round(v, 4)) for k, v in scan['ring_ms'].items())} "
+        f"(in use: {ring}); the first 8 rows alone {scan['rows8_ms']:.4f} ms")
     report[name] = row
+
+
+def k7_launches(H: int, W: int, cfg, dev) -> int:
+    """K7's launches for an H x W frame of the SGBM pipeline under cfg (three
+    channels): one on the sweeps, a path family of each group a launch into
+    the uint16 partials, a family a launch into the int32 S."""
+    bound = cfg.block_size**2 * 3 * 2 * cfg.pre_filter_cap
+    cost = torch.empty((H, W, cfg.num_disparities), device=dev,
+                       dtype=torch.int16 if bound < 2**15 else torch.int32)
+    nd = cfg.num_directions
+    return {"sweeps": 1, "paths": len(sgbm_scan._PATH_LAUNCHES[nd]),
+            "int32": len(sgbm_scan._FAMILIES[nd])}[sgbm_scan.route(cost, nd, bound, cfg.p2)]
 
 
 def frame_ms(run, iters: int) -> float:
@@ -2254,8 +2280,9 @@ def sharded_phase(dev, smi: str) -> dict:
         torch.cuda.synchronize()
         scounts = _launched()
         out["launches"]["world1_sgbm"] = scounts
+        k7 = 2 * k7_launches(*lu.shape[1:3], scfg, dev)
         if set(scounts) != set(SGBM_KERNELS) or (scounts["bt_cost"], scounts["sgbm_scan"],
-                                                  scounts["select"]) != (2, 4, 2):
+                                                  scounts["select"]) != (2, k7, 2):
             raise AssertionError(f"world-1 sharded SGBM launched {scounts}")
         for i in range(2):
             want = psm.stereo_sgbm_forward(lu[i], ru[i], scfg, device=dev)
@@ -2553,12 +2580,13 @@ def run(tables: dict) -> int:
     if min(slaunches[k] for k in SGBM_KERNELS) < 1:
         raise AssertionError(f"a kernel of the SGBM path never launched: {slaunches}")
     for n, per in sper_frame.items():
-        # the partials route: K6 once, K7 a family of each group per launch,
-        # K8 once; K9 two launches a sweep, two sweeps a check
-        if ((per["bt_cost"], per["sgbm_scan"], per["select"]) != (1, 2, 1)
+        # the partials route: K6 once, K7 by its route, K8 once; K9 two
+        # launches a sweep, two sweeps a check
+        k7 = k7_launches(*sframes[n][0].shape[:2], scfg2k if n == "2k" else scfg, dev)
+        if ((per["bt_cost"], per["sgbm_scan"], per["select"]) != (1, k7, 1)
                 or per["speckle"] != 4 * per["host_syncs"] or not per["host_syncs"]):
-            raise AssertionError(f"SGBM {n} launched {per}, expected K6 1, K7 2, K8 1, K9 4 a "
-                                 f"host sync")
+            raise AssertionError(f"SGBM {n} launched {per}, expected K6 1, K7 {k7}, K8 1, K9 4 "
+                                 f"a host sync")
     if any(v for k, v in _build.LAUNCHES.items() if k not in SGBM_KERNELS):
         raise AssertionError(f"the SGBM path launched a GIF kernel: {_build.LAUNCHES}")
 

@@ -5,12 +5,14 @@ STEREO_GIF: K1 low-maps, K2 upsample+WTA (every ratio: it is the TPU's
 polyphase kernel and its generic-ratio kernel K5 in one), K3 JointWMF, K4
 cost + low-maps (exact-stride geometries), K10 cost + chain + WTA in one
 kernel (`tail_fusion='full'`).
-STEREO_SGBM: K6 BT cost, K7 SGM scans (uint16 group partials, or the int32
-S), K8 selection (from either), K9 speckle sweep.
+STEREO_SGBM: K6 BT cost, K7 SGM scans (uint16 group partials, by two image
+sweeps or by path families; or the int32 S), K8 selection (from either), K9
+speckle sweep.
 """
 
 from primestereomatch_torch.kernels._build import (  # noqa: F401
     LAUNCHES,
+    SWEEPS,
     build,
     reset_launches,
 )

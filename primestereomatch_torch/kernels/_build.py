@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) into its own shared library, loaded with ctypes (one
 source may hold the entries of two kernels: `segmin` is in `speckle.cu`,
-K3's participation-weight mode `wmf_valid` in `wmf.cu`). The
+K3's participation-weight mode `wmf_valid` in `wmf.cu`, K7's sweeps
+`sgbm_sweep` and their launch plan `sgbm_sweep_plan` in `sgbm_scan.cu`). The
 build runs at first use, from the sources in the package only, into
 `build/torch_kernels/` beside the package; a library's file name carries
 a hash of its source, the shared headers (`csrc/*.cuh`) and the flags, so
@@ -16,7 +17,9 @@ kernels follow their plain PyTorch versions' arithmetic step for step;
 weights).
 
 Launch counts: each wrapper adds one to `LAUNCHES[name]` where it launches
-its kernel, and nowhere else.
+its kernel, and nowhere else; K7 counts both its designs' launches in
+`LAUNCHES["sgbm_scan"]`, and the image sweeps they make in
+`SWEEPS["sgbm_scan"]`.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ SM_SMEM_BYTES = 228 * 1024        # of an SM, 1 KB of it reserved per resident b
 _FNS: dict = {}                    # bound C entry points, by kernel name
 BUILD_LOGS: dict[str, str] = {}    # nvcc/ptxas output per kernel, for reports
 
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C signatures: pointers and the stream as void*, sizes as int
 _ARGTYPES = {
     "lowmaps": ("psm_lowmaps", [_VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]),
@@ -54,20 +57,25 @@ _ARGTYPES = {
     "bt_cost": ("psm_bt_cost", [_VP, _VP, _VP] + [_I] * 8 + [_VP]),
     "sgbm_scan": ("psm_sgm_scan",
                   [_VP, _I, _I] + [_VP, _I, _I, _I, _I] * 2 + [_I] * 6 + [_VP]),
+    "sgbm_sweep": ("psm_sgm_sweep", [_VP] + [_VP, _I] * 2 + [_I] * 5 + [_VP, _VP, _U, _VP]),
+    "sgbm_sweep_plan": ("psm_sgm_sweep_plan", [_I] * 2 + [_VP]),
     "select": ("psm_select_disparity", [_VP, _VP, _I, _VP] + [_I] * 9 + [_VP]),
     "speckle": ("psm_speckle_sweep", [_VP] * 5 + [_I] * 7 + [_VP]),
     "segmin": ("psm_segmin_sweep", [_VP] * 3 + [_I] * 7 + [_VP]),
 }
 # kernels whose entry lives in another kernel's source
-_SOURCE = {"segmin": "speckle", "wmf_valid": "wmf"}
+_SOURCE = {"segmin": "speckle", "wmf_valid": "wmf", "sgbm_sweep": "sgbm_scan",
+           "sgbm_sweep_plan": "sgbm_scan"}
 NAMES = tuple(_ARGTYPES)
 SOURCES = tuple(dict.fromkeys(_SOURCE.get(n, n) for n in NAMES))
 LAUNCHES = {name: 0 for name in NAMES}
+SWEEPS = {"sgbm_scan": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SWEEPS):
+        for name in counts:
+            counts[name] = 0
 
 
 def build_dir() -> pathlib.Path:

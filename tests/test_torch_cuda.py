@@ -392,7 +392,8 @@ def test_sgbm_scan_kernel_matches_plain(dev, nd, H, W, D, dtype):
     cost = torch.as_tensor(rng.integers(0, 9450, (H, W, D)), dtype=dtype, device=dev)
     K.reset_launches()
     got = K.sgbm_aggregate(cost, 600, 2400, nd)
-    assert K.LAUNCHES["sgbm_scan"] == {3: 2, 5: 4, 8: 4}[nd]
+    # the path families' kernel, a launch a family
+    assert K.LAUNCHES["sgbm_scan"] == {3: 2, 5: 4, 8: 4}[nd] and K.SWEEPS["sgbm_scan"] == 0
     assert torch.equal(got, K.sgbm_aggregate_plain(cost, 600, 2400, nd))
 
 
@@ -403,22 +404,27 @@ def test_sgbm_scan_kernel_matches_plain(dev, nd, H, W, D, dtype):
                          ids=["partials", "p2_beyond_the_bound", "int32_cost"])
 def test_sgbm_scan_partials_kernel_matches_plain(dev, nd, D, dtype, p2):
     """K7's partials sum to the plain S bitwise: uint16 groups where
-    g * (cost_bound + p2) < 2**16 (2 launches, 1 for 3 directions), the
-    int32 S beyond it and for an int32 cost (a launch per family). D = 100
-    copies 8 bytes at a time, D = 7 takes the plain-load ring."""
+    g * (cost_bound + p2) < 2**16 (at these widths the path families'
+    kernel, 2 launches, 1 for 3 directions), the int32 S beyond it and for
+    an int32 cost (a launch per family). D = 100 copies 8 bytes at a time,
+    D = 7 takes the plain-load ring."""
+    from primestereomatch_torch.kernels import sgbm_scan
+
     rng = np.random.default_rng(D + nd)
     H, W = (23, 37) if D > 64 else (31, 45)
     cost = torch.as_tensor(rng.integers(0, 9451, (H, W, D)), dtype=dtype, device=dev)
     narrow = K.partial_groups(nd, 9450, p2, dtype) is not None
     assert narrow == (dtype == torch.int16 and p2 == 2400)
+    route = sgbm_scan.route(cost, nd, 9450, p2)
+    assert route == ("paths" if narrow else "int32")
     K.reset_launches()
     parts = K.sgbm_aggregate_partials(cost, 600, p2, nd, 9450)
     if narrow:
         assert len(parts) == 2 and all(q.dtype == torch.uint16 for q in parts)
-        assert K.LAUNCHES["sgbm_scan"] == {3: 1, 5: 2, 8: 2}[nd]
+        assert (K.LAUNCHES["sgbm_scan"], K.SWEEPS["sgbm_scan"]) == _partials_launches(nd, route)
     else:
         assert len(parts) == 1 and parts[0].dtype == torch.int32
-        assert K.LAUNCHES["sgbm_scan"] == {3: 2, 5: 4, 8: 4}[nd]
+        assert (K.LAUNCHES["sgbm_scan"], K.SWEEPS["sgbm_scan"]) == ({3: 2, 5: 4, 8: 4}[nd], 0)
     want = K.sgbm_aggregate_plain(cost, 600, p2, nd)
     assert torch.equal(sum(q.int() for q in parts), want)
     plain = K.sgbm_aggregate_partials_plain(cost, 600, p2, nd, 9450)
@@ -426,18 +432,177 @@ def test_sgbm_scan_partials_kernel_matches_plain(dev, nd, D, dtype, p2):
     assert all(torch.equal(a, b) for a, b in zip(parts, plain))
 
 
-def test_sgbm_scan_partials_at_the_edge_of_uint16(dev):
-    """Costs at their bound and the largest P2 the rule allows: every L
-    reaches cost_bound + p2 somewhere and the groups of four still fit."""
+@pytest.mark.parametrize("nd", [8, 5, 3])
+@pytest.mark.parametrize("D,route", [(32, "paths"), (160, "sweeps")])
+def test_sgbm_scan_partials_at_the_edge_of_uint16(dev, nd, D, route):
+    """Costs at their bound and the largest P2 each design's groups allow
+    (the sweeps': 4 and 4, 4 and 1, 2 and 1 directions; the path families':
+    4 and 4, 3 and 2, 2 and 1): every L reaches cost_bound + p2 somewhere
+    and the groups still fit, each equal to its plain group."""
+    from primestereomatch_torch.kernels import sgbm_scan
+
     bound = 9450
-    p2 = (2**16 - 1) // 4 - bound
-    assert K.partial_groups(8, bound, p2) is not None
-    assert K.partial_groups(8, bound, p2 + 1) is None
+    g = max(len(grp) for grp in K.partial_groups(nd, bound, 0, torch.int16, route))
+    assert g == {"sweeps": {8: 4, 5: 4, 3: 2}, "paths": {8: 4, 5: 3, 3: 2}}[route][nd]
+    p2 = (2**16 - 1) // g - bound
+    groups = K.partial_groups(nd, bound, p2, torch.int16, route)
+    assert groups is not None
+    assert K.partial_groups(nd, bound, p2 + 1, torch.int16, route) is None
     rng = np.random.default_rng(3)
-    cost = torch.as_tensor(rng.choice([0, bound], (40, 50, 32)), dtype=torch.int16, device=dev)
-    parts = K.sgbm_aggregate_partials(cost, 600, p2, 8, bound)
-    assert len(parts) == 2
-    assert torch.equal(sum(q.int() for q in parts), K.sgbm_aggregate_plain(cost, 600, p2, 8))
+    cost = torch.as_tensor(rng.choice([0, bound], (40, 50, D)), dtype=torch.int16, device=dev)
+    parts = tuple(torch.empty(cost.shape, dtype=torch.uint16, device=dev) for _ in range(2))
+    K.reset_launches()
+    (sgbm_scan._sweeps if route == "sweeps" else sgbm_scan._paths)(cost, 600, p2, nd, parts)
+    assert (K.LAUNCHES["sgbm_scan"], K.SWEEPS["sgbm_scan"]) == _partials_launches(nd, route)
+    plain = sgbm_scan.sum_groups_plain(cost, 600, p2, groups)
+    assert all(torch.equal(a, b) for a, b in zip(parts, plain))
+    assert torch.equal(sum(q.int() for q in parts), K.sgbm_aggregate_plain(cost, 600, p2, nd))
+
+
+def test_sgbm_partials_take_the_path_families_where_a_sweep_group_does_not_fit(dev):
+    """MODE_SGBM on an image the sweeps take with a P2 whose L fits a group
+    of three directions but not of four: the sweeps' top-down group of four
+    does not fit, the path families' groups (3 and 2) do, so the uint16
+    partials take them, each equal to its plain group."""
+    from primestereomatch_torch.kernels import sgbm_scan
+
+    bound, p2 = 9450, (2**16 - 1) // 3 - 9450
+    rng = np.random.default_rng(4)
+    cost = torch.as_tensor(rng.choice([0, bound], (4, 1700, 160)), dtype=torch.int16, device=dev)
+    assert sgbm_scan.route(cost, 5, bound, 2400) == "sweeps"
+    assert K.partial_groups(5, bound, p2) is None
+    assert sgbm_scan.route(cost, 5, bound, p2) == "paths"
+    K.reset_launches()
+    parts = K.sgbm_aggregate_partials(cost, 600, p2, 5, bound)
+    assert (K.LAUNCHES["sgbm_scan"], K.SWEEPS["sgbm_scan"]) == (2, 0)
+    plain = K.sgbm_aggregate_partials_plain(cost, 600, p2, 5, bound)
+    assert len(parts) == len(plain) == 2
+    assert all(torch.equal(a, b) for a, b in zip(parts, plain))
+    assert torch.equal(sum(q.int() for q in parts), K.sgbm_aggregate_plain(cost, 600, p2, 5))
+
+
+def _partials_launches(nd, route):
+    """K7's launches and sweeps for the uint16 partials: both sweeps in one
+    launch, or a launch per path family of each group."""
+    return ({3: 1, 5: 2, 8: 2}[nd], 0) if route == "paths" else (1, 2)
+
+
+# (H, W): strips of one column (W below the card's strips), a 2K row
+# (34-column strips, the last one 32 wide), W = 301 (the last strip one
+# column), a single row, a single column
+SWEEP_SHAPES = [(29, 47), (12, 2208), (23, 301), (1, 7), (9, 1)]
+
+
+@pytest.mark.parametrize("nd", [3, 5, 8])
+@pytest.mark.parametrize("D", [7, 16, 64, 100, 130, 256])
+@pytest.mark.parametrize("H,W", SWEEP_SHAPES)
+def test_sgbm_sweeps_match_the_plain_groups(dev, nd, D, H, W):
+    """Each design's uint16 partials are bitwise their plain groups and
+    their sum the plain S: the path families' at every D, the sweeps' (both
+    in one launch) at the D they take, at every shape; the entry takes the
+    route its rule gives, and the int32 cost's S (the path families) equals
+    the plain S. D = 130 leaves lanes past D."""
+    from primestereomatch_torch.kernels import sgbm_scan
+
+    rng = np.random.default_rng(H * W + D + nd)
+    C = rng.integers(0, 9451, (H, W, D))
+    cost = torch.as_tensor(C, dtype=torch.int16, device=dev)
+    want = K.sgbm_aggregate_plain(cost, 600, 2400, nd)
+    designs = {"paths": sgbm_scan._paths}
+    if sgbm_scan.SWEEPS_MIN_D <= D <= sgbm_scan.SWEEPS_MAX_D:
+        designs["sweeps"] = sgbm_scan._sweeps
+    for route, fn in designs.items():
+        parts = tuple(torch.empty(cost.shape, dtype=torch.uint16, device=dev) for _ in range(2))
+        K.reset_launches()
+        fn(cost, 600, 2400, nd, parts)
+        assert (K.LAUNCHES["sgbm_scan"], K.SWEEPS["sgbm_scan"]) == _partials_launches(nd, route)
+        plain = sgbm_scan.sum_groups_plain(
+            cost, 600, 2400, K.partial_groups(nd, 9450, 2400, torch.int16, route))
+        assert all(torch.equal(a, b) for a, b in zip(parts, plain)), route
+        assert torch.equal(sum(q.int() for q in parts), want), route
+    route = "sweeps" if sgbm_scan.takes_sweeps(W, D) else "paths"
+    assert sgbm_scan.route(cost, nd, 9450, 2400) == route
+    parts = K.sgbm_aggregate_partials(cost, 600, 2400, nd, 9450)
+    assert torch.equal(sum(q.int() for q in parts), want)
+    wide = torch.as_tensor(C, dtype=torch.int32, device=dev)
+    assert torch.equal(K.sgbm_aggregate(wide, 600, 2400, nd), want)
+
+
+@pytest.mark.parametrize("H,W,D", [(17, 37, 130), (6, 20, 256), (11, 5, 200), (9, 300, 160),
+                                   (7, 2208, 256), (5, 2376, 136)])
+def test_sgbm_sweeps_strips_from_the_plan(dev, H, W, D):
+    """The plan's strips cover the width, the last one narrower where they
+    do not divide it, a block's warps cover its strip, the last warp with
+    fewer columns where they do not divide it, and the card holds both
+    sweeps' blocks: strips of one column (W below the card's strips), of 5
+    columns in warps of 2, of 34 in 12 warps of 3 (2K) and of 36 in 12
+    warps of 3 (W = 2376, the widest an H100 holds); the sweeps' partials
+    equal their plain groups."""
+    from primestereomatch_torch.kernels import sgbm_scan
+
+    rng = np.random.default_rng(H + W + D)
+    cost = torch.as_tensor(rng.integers(0, 9451, (H, W, D)), dtype=torch.int16, device=dev)
+    pl = sgbm_scan.plan(cost)
+    assert pl is not None
+    assert (pl.strips - 1) * pl.strip_width < W <= pl.strips * pl.strip_width
+    assert (pl.warps - 1) * pl.cols < pl.strip_width <= pl.warps * pl.cols <= 12 * pl.cols
+    assert 2 * pl.strips <= pl.sms * pl.blocks_per_sm
+    parts = tuple(torch.empty(cost.shape, dtype=torch.uint16, device=dev) for _ in range(2))
+    sgbm_scan._sweeps(cost, 600, 2400, 8, parts)
+    plain = sgbm_scan.sum_groups_plain(cost, 600, 2400, sgbm_scan._GROUPS[8])
+    assert all(torch.equal(a, b) for a, b in zip(parts, plain))
+
+
+@pytest.mark.parametrize("H,W,D", [(5, None, 256), (4, 1600, 512), (3, 2208, 512)])
+def test_sgbm_partials_take_the_path_families_where_the_sweeps_do_not_fit(dev, H, W, D):
+    """An image a little wider than the card holds both sweeps' strips of
+    (12 warps x 3 columns, one block an SM), and 512 disparities (past the
+    sweeps) at W = 1600 and 2208: the uint16 partials take the path
+    families' kernel, each equal to its plain group, and the int32 S equals
+    the plain S."""
+    from primestereomatch_torch.kernels import sgbm_scan
+
+    if W is None:
+        W = torch.cuda.get_device_properties(dev).multi_processor_count // 2 * 36 + 24
+    rng = np.random.default_rng(W + D)
+    cost = torch.as_tensor(rng.integers(0, 9451, (H, W, D)), dtype=torch.int16, device=dev)
+    if D <= sgbm_scan.SWEEPS_MAX_D:
+        assert sgbm_scan.takes_sweeps(W, D) and sgbm_scan.plan(cost) is None
+    assert sgbm_scan.route(cost, 8, 9450, 2400) == "paths"
+    K.reset_launches()
+    parts = K.sgbm_aggregate_partials(cost, 600, 2400, 8, 9450)
+    assert (K.LAUNCHES["sgbm_scan"], K.SWEEPS["sgbm_scan"]) == (2, 0)
+    plain = K.sgbm_aggregate_partials_plain(cost, 600, 2400, 8, 9450)
+    assert all(torch.equal(x, y) for x, y in zip(parts, plain))
+    want = K.sgbm_aggregate_plain(cost, 600, 2400, 8)
+    assert torch.equal(sum(q.int() for q in parts), want)
+    assert torch.equal(K.sgbm_aggregate(cost, 600, 2400, 8), want)
+
+
+def test_sgbm_sweeps_again_on_the_same_slots(dev):
+    """A second launch, after one of another shape, reuses the edge slots
+    the first left: the launch's tags are above every earlier one's, so none
+    is read stale; the three launches equal their plain groups."""
+    from primestereomatch_torch.kernels import sgbm_scan
+
+    rng = np.random.default_rng(5)
+    a = torch.as_tensor(rng.integers(0, 9451, (33, 410, 160)), dtype=torch.int16, device=dev)
+    b = torch.as_tensor(rng.integers(0, 9451, (20, 300, 256)), dtype=torch.int16, device=dev)
+
+    def sweeps(cost, nd):
+        parts = tuple(torch.empty(cost.shape, dtype=torch.uint16, device=dev) for _ in range(2))
+        sgbm_scan._sweeps(cost, 600, 2400, nd, parts)
+        return parts
+
+    first = sweeps(a, 8)
+    sweeps(b, 5)
+    key = (a.device, torch.cuda.current_stream(a.device).cuda_stream)
+    slots = sgbm_scan._SCRATCH[key][0]
+    again = sweeps(a, 8)
+    assert sgbm_scan._SCRATCH[key][0] is slots
+    plain = sgbm_scan.sum_groups_plain(a, 600, 2400, sgbm_scan._GROUPS[8])
+    for got in (first, again):
+        assert all(torch.equal(x, y) for x, y in zip(got, plain))
 
 
 # K8's settings: every min_disparity (negative ones included), uniqueness
@@ -645,8 +810,10 @@ def test_sgbm_forward_on_card_matches_cpu(dev, mode):
     assert got.device.type == "cuda" and got.dtype == torch.int16
     for name in ("bt_cost", "sgbm_scan", "select", "speckle"):
         assert K.LAUNCHES[name] >= 1, name
-    # the partials route: a path family of each group per launch
+    # the partials route at D = 16: the path families' kernel, a family of
+    # each group per launch
     assert K.LAUNCHES["sgbm_scan"] == {"hh": 2, "sgbm": 2, "3way": 1}[mode]
+    assert K.SWEEPS["sgbm_scan"] == 0
     assert torch.equal(got.cpu(), stereo_sgbm_forward(left, right, cfg, device="cpu"))
 
 

@@ -148,7 +148,8 @@ def test_port_imports_nothing_of_jax():
         "import primestereomatch_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, tune_bt_cost, tune_gif_tail, tune_select, tune_speckle, tune_wmf\n"
+        "import chip_smoke, tune_bt_cost, tune_gif_tail, tune_scan, tune_select, tune_speckle\n"
+        "import tune_wmf\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'primestereomatch_tpu'))\n"
         "assert not bad, bad\n"

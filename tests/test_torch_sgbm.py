@@ -121,8 +121,9 @@ def test_aggregate_matches_jax_and_pallas(nd):
 @pytest.mark.parametrize("nd", [3, 5, 8])
 def test_aggregate_partials_match_jax_and_pallas(nd):
     """K7's main-path entry on the CPU: two uint16 group partials (the plain
-    version), each below 2**16 by the bound, whose sum is the JAX
-    `aggregate` and the sum of the Pallas kernel's partials."""
+    version; at D = 16 the path families' groups), each below 2**16 by the
+    bound, whose sum is the JAX `aggregate` and the sum of the Pallas
+    kernel's partials."""
     rng = np.random.default_rng(nd + 40)
     H, W, D, bound = 22, 36, 16, 9450
     C = rng.integers(0, bound + 1, (H, W, D)).astype(np.int32)
@@ -133,7 +134,7 @@ def test_aggregate_partials_match_jax_and_pallas(nd):
                                    for q in parts)
     plain = K.sgbm_aggregate_partials_plain(cost, 600, 2400, nd, bound)
     assert all(torch.equal(a, b) for a, b in zip(parts, plain))
-    g = {8: 4, 5: 3, 3: 2}[nd]
+    g = {8: 4, 5: 4, 3: 2}[nd]
     assert max(int(q.int().max()) for q in parts) <= g * (bound + 2400) < 2**16
     S = sum(q.int() for q in parts)
     want = np.asarray(jops.aggregate(jnp.asarray(C), 600, 2400, nd, cost_bound=bound))
@@ -145,24 +146,74 @@ def test_aggregate_partials_match_jax_and_pallas(nd):
     np.testing.assert_array_equal(S.permute(0, 2, 1).numpy(), Sj)
 
 
+@pytest.mark.parametrize("route", ["sweeps", "paths"])
 @pytest.mark.parametrize("nd", [3, 5, 8])
-def test_partial_groups_follow_the_bound(nd):
+def test_partial_groups_follow_the_bound(nd, route):
     """uint16 partials exactly where g * (cost_bound + p2) < 2**16 for the
-    largest group of directions (4 of 8, 3 of 5, 2 of 3); the int32 S
-    beyond it, for an int32 cost and without a bound."""
-    g = {8: 4, 5: 3, 3: 2}[nd]
+    largest group of directions of the route, a sweep's (4 of 8, 4 of 5, 2
+    of 3) or the path families' (4 of 8, 3 of 5, 2 of 3); the int32 S beyond
+    it, for an int32 cost and without a bound."""
+    g = {"sweeps": {8: 4, 5: 4, 3: 2}, "paths": {8: 4, 5: 3, 3: 2}}[route][nd]
     edge = (2**16 - 1) // g
     for bound in (0, 100, 9450, 16000, 2**15 - 1, 2**15, 40000):
         for p2 in (0, 96, 2400, edge - bound, edge - bound + 1, 2**16):
             if p2 < 0:
                 continue
-            groups = K.partial_groups(nd, bound, p2)
+            groups = K.partial_groups(nd, bound, p2, torch.int16, route)
             assert (groups is not None) == (g * (bound + p2) < 2**16), (bound, p2)
             if groups is not None:
-                fams = [f for grp in groups for f in grp]
-                assert len(groups) == 2 and len(set(fams)) == len(fams) == {8: 4, 5: 4, 3: 2}[nd]
-    assert K.partial_groups(nd, None, 2400) is None
-    assert K.partial_groups(nd, 9450, 2400, torch.int32) is None
+                dirs = [d for grp in groups for d in grp]
+                assert len(groups) == 2 and len(set(dirs)) == len(dirs) == nd
+                assert max(len(grp) for grp in groups) == g
+                if route == "sweeps":
+                    # the top-down sweep, then the bottom-up one: no
+                    # direction of the first walks up, none of the second
+                    # down
+                    assert not any(rev for _, _, rev in groups[0])
+                    assert all(rev for _, _, rev in groups[1])
+    assert K.partial_groups(nd, None, 2400, torch.int16, route) is None
+    assert K.partial_groups(nd, 9450, 2400, torch.int32, route) is None
+
+
+@pytest.mark.parametrize("route,cost_itemsize,want", [
+    ("sweeps", 2, {3: 8, 5: 8, 8: 8}), ("paths", 2, {3: 14, 5: 26, 8: 44}),
+    ("int32", 2, {3: 26, 5: 46, 8: 76}), ("int32", 4, {3: 32, 5: 56, 8: 92})])
+def test_scan_bytes_per_value_by_route(route, cost_itemsize, want):
+    """K7 moves per (pixel, d) what its passes read and write: on the
+    sweeps the cost and a uint16 partial each, 8 bytes; on the path
+    families the cost and the sums each pass (44 bytes for 8 directions
+    into the uint16 partials, 76 into the int32 S), the first pass into a
+    tensor only writing them."""
+    from primestereomatch_torch.kernels import sgbm_scan
+
+    for nd in (3, 5, 8):
+        assert sgbm_scan.bytes_per_value(nd, cost_itemsize, route) == want[nd]
+
+
+@pytest.mark.parametrize("W,D", [(13, 200), (1599, 256), (1600, 256), (1600, 128),
+                                 (1600, 129), (1600, 257)])
+def test_partials_route_by_disparities(W, D):
+    """The sweeps' groups (top-down, bottom-up) at 128 < D <= 256 and W >=
+    1600 (on a card, where it holds them), else the path families' (rows and
+    columns, the two diagonals): either pair sums to the JAX aggregate, and
+    each route counts its own kernel's bytes."""
+    from primestereomatch_torch.kernels import sgbm_scan
+
+    rng = np.random.default_rng(W + D)
+    H, bound = 2, 9450
+    C = rng.integers(0, bound + 1, (H, W, D)).astype(np.int32)
+    cost = _t(C).to(torch.int16)
+    route = sgbm_scan.route(cost, 8, bound, 2400)
+    assert route == ("sweeps" if 128 < D <= 256 and W >= 1600 else "paths")
+    assert sgbm_scan.takes_sweeps(W, D) == (route == "sweeps")
+    groups = K.partial_groups(8, bound, 2400, torch.int16, route)
+    assert groups == (sgbm_scan._GROUPS if route == "sweeps" else sgbm_scan._PATH_GROUPS)[8]
+    parts = K.sgbm_aggregate_partials(cost, 600, 2400, 8, bound)
+    assert all(torch.equal(a, b) for a, b in zip(parts, sgbm_scan.sum_groups_plain(
+        cost, 600, 2400, groups)))
+    want = np.asarray(jops.aggregate(jnp.asarray(C), 600, 2400, 8, cost_bound=bound))
+    np.testing.assert_array_equal(sum(q.int() for q in parts).numpy(), want)
+    assert sgbm_scan.bytes_per_value(8, 2, route) == (8 if route == "sweeps" else 44)
 
 
 @pytest.mark.parametrize("why", ["p2_beyond_the_bound", "int32_cost", "no_bound"])
