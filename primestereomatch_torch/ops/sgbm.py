@@ -314,10 +314,8 @@ def speckle_graph(disp16: torch.Tensor, max_diff: int, invalid_value: int):
     return valid, labels, (conn(0, -1), conn(0, 1), conn(1, -1), conn(1, 1))
 
 
-# convergence checks filter_speckles made (each reads one int: a host sync),
-# for the reports of chip_smoke.py, and the sweeps (K9's) it ran, for the
-# app's `stream_counts`
-SPECKLE_CHECKS = {"count": 0}
+# the sweeps (K9's) filter_speckles ran, for the app's `stream_counts`; it
+# reads one int (a host sync) every `steps_per_check` of them
 SPECKLE_SWEEPS = {"count": 0}
 
 
@@ -356,7 +354,6 @@ def filter_speckles(
             labels = speckle_sweep(labels, links, changed, stamp)
         it += steps_per_check
         SPECKLE_SWEEPS["count"] += steps_per_check
-        SPECKLE_CHECKS["count"] += 1
         if int(changed.item()) != stamp:
             break
 

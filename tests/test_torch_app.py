@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import port_helpers
 from primestereomatch_tpu import app as japp
 from primestereomatch_tpu import cli as jcli
 from primestereomatch_torch import app, cli, hci
@@ -154,7 +154,7 @@ def test_app_stream_equals_compute():
 
 @pytest.fixture(scope="module")
 def calibrated_dir(tmp_path_factory):
-    """Two side-by-side raw frames (2 x 384x216) of chip_smoke's known scene
+    """Two side-by-side raw frames (2 x 384x216) of the known scene of port_helpers.py
     through the shipped HD720 calibration at calib_size 1280x720."""
     cal = load_stereo_calibration(str(ROOT / "data" / "intrinsics.yml"),
                                   str(ROOT / "data" / "extrinsics.yml"))
@@ -162,8 +162,8 @@ def calibrated_dir(tmp_path_factory):
     rec = Rectifier(cal, size, calib_size=HD720, device="cpu")
     d = tmp_path_factory.mktemp("hd720_small")
     for i, seed in enumerate((5, 6)):
-        scene_l, scene_r, _ = chip_smoke.calibrated_scene(rec.crop, size, (10, 5), seed)
-        raw = chip_smoke.raw_frames(cal, rec.rect, size, HD720, (scene_l, scene_r))
+        scene_l, scene_r, _ = port_helpers.calibrated_scene(rec.crop, size, (10, 5), seed)
+        raw = port_helpers.raw_frames(cal, rec.rect, size, HD720, (scene_l, scene_r))
         write_png(str(d / f"f{i}.png"), np.concatenate(raw, axis=1))
     return str(d)
 

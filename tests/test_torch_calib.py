@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import chip_smoke
+import port_helpers
 import tests.oracle_sgbm as oracle
 from primestereomatch_tpu import calib as jcalib
 from primestereomatch_tpu.calib import calibrate as jcal
@@ -497,11 +497,11 @@ def test_window_sum_1d_equals_jax(engine):
 # ---- the calibrated slice as a whole -------------------------------------------
 
 def _raw_pair(cal, size, levels):
-    """Raw frames (uint8) of chip_smoke's known scene through the port's
+    """Raw frames (uint8) of the known scene of port_helpers.py through the port's
     Rectifier geometry, and the rectangle of the field in crop coordinates."""
     rec = calib.Rectifier(cal, size, calib_size=HD720, device="cpu")
-    scene_l, scene_r, rect = chip_smoke.calibrated_scene(rec.crop, size, levels, 5)
-    return chip_smoke.raw_frames(cal, rec.rect, size, HD720, (scene_l, scene_r)), rect
+    scene_l, scene_r, rect = port_helpers.calibrated_scene(rec.crop, size, levels, 5)
+    return port_helpers.raw_frames(cal, rec.rect, size, HD720, (scene_l, scene_r)), rect
 
 
 SLICE_CASES = [((384, 216), 304, "cvc_low_maps"), ((320, 180), 253, "low_maps")]
@@ -544,8 +544,8 @@ def test_calibrated_slice_gif_matches_jax(cal, monkeypatch, size, crop_w, tail):
     z = disparity_to_depth(got[0], Q).numpy()
     zj = np.asarray(jdepth.disparity_to_depth(want[0], Q))
     np.testing.assert_array_equal(z[agree[0]], zj[agree[0]])
-    regions = chip_smoke.field_regions(rect, levels, cfg.max_dis, m=6)
-    chip_smoke.check_field("gif", got[0].numpy().astype(np.float64), z, regions, Q)
+    regions = port_helpers.field_regions(rect, levels, cfg.max_dis, m=6)
+    port_helpers.check_field("gif", got[0].numpy().astype(np.float64), z, regions, Q)
 
 
 @pytest.mark.parametrize("size,crop_w,tail", SLICE_CASES, ids=["384x216", "320x180"])
@@ -572,4 +572,4 @@ def test_calibrated_slice_sgbm_matches_jax(cal, size, crop_w, tail):
                                                 Q)))
     dn = d.numpy().astype(np.float64)
     dn[dn <= 0] = np.nan
-    chip_smoke.check_field("sgbm", dn, z, chip_smoke.field_regions(rect, levels, 16, m=6), Q)
+    port_helpers.check_field("sgbm", dn, z, port_helpers.field_regions(rect, levels, 16, m=6), Q)

@@ -6,6 +6,8 @@ import nothing of JAX, so they also run where JAX is not installed:
 Without a CUDA card they skip. chip_smoke.py checks the same at the main
 path's full shapes."""
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,10 @@ from primestereomatch_torch import (
 )
 from primestereomatch_torch.ops.guided_filter import guide_stats
 
+import port_helpers
+
 pytestmark = pytest.mark.cuda
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -866,50 +871,96 @@ def test_table_median_on_card_matches_cpu(dev):
     _agree(got, joint_wmf(disp, radius=9, n_bins=32, findex=fi_t, wmap=wm_t))
 
 
-@pytest.mark.parametrize("fusion", ["maps", "full"])
-def test_u8_forward_launches_k1_at_exact_stride(dev, fusion):
+@pytest.mark.parametrize("fusion,scene", [("maps", "seeded"), ("full", "seeded"),
+                                          ("maps", "2k"), ("full", "2k")],
+                         ids=["maps", "full", "maps-2k", "full-2k"])
+def test_u8_forward_launches_k1_at_exact_stride(dev, fusion, scene):
     """At 160 = 4 * 40 the float cost takes K4 (or K10), the uint8 cost K1
-    -> K2 -> K3; the card agrees with the CPU within the tie class."""
-    left, right = _pair(64, 160, 6, 2)
-    cfg = GIFConfig(max_dis=16, med_sz=7, cvc_dtype="u8", tail_fusion=fusion)
+    -> K2 -> K3; the card agrees with the CPU within the tie class. At 2K
+    (2208 = 4 * 552, D = 256) the same kernels recover the seeded field of
+    chip_smoke.synthetic_2k: each region's median within 1 of its level."""
+    import chip_smoke
+
+    if scene == "2k":
+        left, right, rect = chip_smoke.synthetic_2k(0)
+        cfg = GIFConfig(max_dis=256, cvc_dtype="u8", tail_fusion=fusion)
+    else:
+        left, right = _pair(64, 160, 6, 2)
+        cfg = GIFConfig(max_dis=16, med_sz=7, cvc_dtype="u8", tail_fusion=fusion)
     K.reset_launches()
     got = stereo_gif_forward(left, right, cfg)
     assert {n for n, c in K.LAUNCHES.items() if c} == {"lowmaps", "wta", "wmf"}
-    want = stereo_gif_forward(left, right, cfg, device="cpu")
-    for a, b in zip(got, want):
-        assert a.device.type == "cuda" and (a.cpu() != b).float().mean() <= 2e-3
+    if scene == "2k":
+        chip_smoke.check_medians_2k(*(t.cpu().numpy().astype(np.float64) for t in got), rect)
+    else:
+        want = stereo_gif_forward(left, right, cfg, device="cpu")
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda" and (a.cpu() != b).float().mean() <= 2e-3
 
 
-def test_u8_costs_on_card_are_bitwise_cpu(dev):
+@pytest.mark.parametrize("scene", ["seeded", "teddy"])
+def test_u8_costs_on_card_are_bitwise_cpu(dev, scene):
+    """The uint8 costs at the FGF grid on the card bitwise the CPU's; at
+    Teddy (D = 64) their sha256 is chip_smoke.U8_SHA256, the JAX
+    package's."""
+    import hashlib
+
+    import chip_smoke
     from primestereomatch_torch.models.gif_pipeline import sampled_u8_costs
     from primestereomatch_torch.ops.cost_volume import unit_cost
+    from primestereomatch_torch.utils import load_dataset
 
-    left, right = _pair(72, 150, 3, 4)
+    if scene == "teddy":
+        s = load_dataset("Teddy")
+        left, right, cfg = s.left_f32, s.right_f32, GIFConfig()
+    else:
+        left, right = _pair(72, 150, 3, 4)
+        cfg = GIFConfig(max_dis=24)
     views = torch.as_tensor(np.stack([left, right]))
-    cfg = GIFConfig(max_dis=24)
     got = sampled_u8_costs(views.to(dev), cfg)
     want = sampled_u8_costs(views, cfg)
     assert torch.equal(got.cpu(), want)
     assert torch.equal(unit_cost(got).cpu(), unit_cost(want))
+    if scene == "teddy":
+        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+        assert digest == chip_smoke.U8_SHA256
 
 
-@pytest.mark.parametrize("variant", [dict(pp_toolchain=True), dict(wmf_mode="table")],
-                         ids=["toolchain", "table"])
-def test_variant_forward_on_card_matches_cpu(dev, variant):
-    from primestereomatch_torch.utils import feature_index_color
+VARIANT_CASES = [("toolchain", None), ("table", None)] + [
+    (v, n) for n in ("Teddy", "Cones") for v in port_helpers.VARIANT_CONFIGS]
 
-    left, right = _pair(64, 154, 5, 3)
-    cfg = GIFConfig(max_dis=16, med_sz=7, **variant)
+
+@pytest.mark.parametrize("variant,scene", VARIANT_CASES,
+                         ids=[v + (f"-{n.lower()}" if n else "") for v, n in VARIANT_CASES])
+def test_variant_forward_on_card_matches_cpu(dev, variant, scene):
+    """Each variant on the card launches K1, K2 and K3 (table mode: K1, K2;
+    its median is plain torch) and agrees with the CPU within the tie
+    class, on a seeded 64x154 pair (D = 16) and on Middlebury Teddy and
+    Cones at GIFConfig's defaults (D = 64; table mode with the feature
+    indexes of seed 0), where tests/test_torch_variants.py holds the CPU's
+    %BP(nonocc) to the JAX package's."""
+    from primestereomatch_torch.utils import feature_index_color, load_dataset
+
+    to_u8 = lambda x: np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8)  # noqa: E731
+    if scene:
+        s = load_dataset(scene)
+        left, right, u8, feat = s.left_f32, s.right_f32, (s.left_bgr, s.right_bgr), {}
+        cfg = GIFConfig(**port_helpers.VARIANT_CONFIGS[variant])
+    else:
+        left, right = _pair(64, 154, 5, 3)
+        u8, feat = (to_u8(left), to_u8(right)), dict(n_feat=64)
+        cfg = GIFConfig(max_dis=16, med_sz=7, **port_helpers.VARIANT_CONFIGS[variant])
     extra = ()
     if cfg.wmf_mode == "table":
-        to_u8 = lambda x: np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8)  # noqa: E731
-        lf, wm = feature_index_color(to_u8(left), n_feat=64, seed=0)
-        rf, _ = feature_index_color(to_u8(right), n_feat=64, seed=0)
+        lf, wm = feature_index_color(u8[0], seed=0, **feat)
+        rf, _ = feature_index_color(u8[1], seed=0, **feat)
         extra = (lf, rf, wm)
     K.reset_launches()
     got = stereo_gif_forward(left, right, cfg, True, *extra)
     # table mode's median is plain torch; the toolchain ends in K3
     assert K.LAUNCHES["wmf"] == (0 if extra else 1) and K.LAUNCHES["lowmaps"] == 1
+    assert {n for n, c in K.LAUNCHES.items() if c} == {"lowmaps", "wta"} | (
+        set() if extra else {"wmf"})
     want = stereo_gif_forward(left, right, cfg, True, *extra, device="cpu")
     for a, b in zip(got, want):
         assert a.device.type == "cuda" and (a.cpu() != b).float().mean() <= 2e-3
@@ -939,6 +990,8 @@ def test_joint_wmf_float_goes_through_k3(dev):
 
 
 def test_dispest_stages_on_card_match_cpu(dev, tmp_path):
+    """DispEst's stages on the card against the CPU's, its dump read back,
+    its compute() the forward within the tie class."""
     from primestereomatch_torch import DispEst
     from primestereomatch_torch.utils.png import read_png
 
@@ -962,6 +1015,33 @@ def test_dispest_stages_on_card_match_cpu(dev, tmp_path):
     got = card.compute(left, right)
     ref = stereo_gif_forward(left, right, cfg)
     assert all((a != b).float().mean() <= 2e-3 for a, b in zip(got, ref))
+
+
+def test_dispest_stages_on_card_match_the_reference_dumps(dev):
+    """DispEst's stages on the card at Middlebury Teddy (GIFConfig's
+    defaults) against the reference binary's stage dumps
+    (tests/golden/ref_teddy.npz) at the JAX package's bounds: gradients
+    5e-7, CVC 1e-6 and CVF 1e-3 at d in (1, 8, 32, 63), WTA mismatch 5e-4."""
+    from primestereomatch_torch import DispEst
+    from primestereomatch_torch.models.gif_pipeline import view_gradients
+    from primestereomatch_torch.utils import load_dataset
+
+    s = load_dataset("Teddy")
+    ref = np.load(ROOT / "tests" / "golden" / "ref_teddy.npz")
+    cfg = GIFConfig()
+    eng = DispEst(cfg)
+    views = torch.as_tensor(np.stack([s.left_f32, s.right_f32]), device=dev)
+    grd = view_gradients(views, cfg).cpu().numpy()
+    assert max(float(np.abs(grd[v] - ref[k]).max())
+               for v, k in ((0, "lgrdx"), (1, "rgrdx"))) <= 5e-7
+    for side, img, cv in zip("lr", (s.left_f32, s.right_f32),
+                             eng.cost_const(s.left_f32, s.right_f32)):
+        cvf = eng.cost_filter(img, cv)
+        for d in (1, 8, 32, 63):
+            assert float(np.abs(cv[d].cpu().numpy() - ref[f"cvc_{side}_d{d}"]).max()) <= 1e-6
+            assert float(np.abs(cvf[d].cpu().numpy() - ref[f"cvf_{side}_d{d}"]).max()) <= 1e-3
+        wta = eng.disp_select(cvf).cpu().numpy()
+        assert float((wta != ref[f"{side}disp_wta"]).mean()) <= 5e-4
 
 
 # ---- rectification and depth: the card bitwise the CPU ----------------------
@@ -992,17 +1072,25 @@ def test_remap_on_card_matches_cpu(dev, dtype):
         assert got.dtype == t.dtype and torch.equal(got.cpu(), remap_bilinear(t, m))
 
 
-@pytest.mark.parametrize("size,calib_size,crop", [
-    ((1280, 720), None, (526, 1016)), ((672, 376), (1280, 720), (274, 530)),
+@pytest.mark.parametrize("size,calib_size,crop,levels", [
+    ((1280, 720), None, (526, 1016), (40, 20)), ((672, 376), (1280, 720), (274, 530), (24, 12)),
 ], ids=["hd720", "zed_vga"])
-def test_rectifier_and_depth_on_card_match_cpu(dev, size, calib_size, crop):
+def test_rectifier_and_depth_on_card_match_cpu(dev, size, calib_size, crop, levels):
     """The Rectifier on the card (maps uploaded once, uint8 numpy frames in)
     equals the CPU one bit for bit at HD720 and ZED-VGA, with the crops of
     the shipped calibration; disparity_to_depth and reproject_disparity on
     the card equal the CPU's on the same disparities (zero, negative and
-    beyond max_depth included)."""
+    beyond max_depth included). Then raw frames of the known scene
+    (tests/port_helpers.py) rectified on the card and matched by each GIF
+    tail the crop's width takes (HD720's exact stride: K4 -> K2 -> K3 and
+    K10 -> K3; ZED-VGA's quasi width: K1 -> K2 -> K3) and by SGBM (K6-K9),
+    exactly those kernels launched: each region of the field within 1 of
+    its level and its depth within 2% of f * B / d."""
+    from primestereomatch_torch import SGBMConfig, stereo_sgbm_forward
+    from primestereomatch_torch.app import U8_TO_F32
     from primestereomatch_torch.calib import Rectifier
     from primestereomatch_torch.ops import disparity_to_depth, reproject_disparity
+    from primestereomatch_torch.ops.geometry import fused_cvc_applies
 
     calib = _calibration()
     card = Rectifier(calib, size, calib_size=calib_size)
@@ -1025,43 +1113,161 @@ def test_rectifier_and_depth_on_card_match_cpu(dev, size, calib_size, crop):
         assert torch.equal(reproject_disparity(disp.to(dev), Q, **kw).cpu(),
                            reproject_disparity(disp, Q, **kw))
 
+    scene_l, scene_r, rect = port_helpers.calibrated_scene(card.crop, size, levels, 5)
+    l8, r8 = card(*port_helpers.raw_frames(calib, card.rect, size, calib_size, (scene_l, scene_r)))
+    regions = port_helpers.field_regions(rect, levels, 64)
+    if fused_cvc_applies(crop[1], 64, 4):
+        tails = [({}, {"cvc_lowmaps", "wta", "wmf"}), ({"tail_fusion": "full"}, {"cvc_wta", "wmf"})]
+    else:
+        tails = [({}, {"lowmaps", "wta", "wmf"})]
+    runs = [(lambda kw=kw: stereo_gif_forward(l8.to(torch.float32) * U8_TO_F32,
+                                              r8.to(torch.float32) * U8_TO_F32,
+                                              GIFConfig(**kw))[0], kernels)
+            for kw, kernels in tails]
+    runs.append((lambda: stereo_sgbm_forward(l8, r8, SGBMConfig()).to(torch.float32) / 16,
+                 {"bt_cost", "sgbm_scan", "select", "speckle"}))
+    for run, kernels in runs:
+        K.reset_launches()
+        d = run()
+        assert {n for n, c in K.LAUNCHES.items() if c} == kernels
+        dn = d.cpu().numpy().astype(np.float64)
+        dn[dn <= 0] = np.nan
+        port_helpers.check_field(str(kernels), dn, disparity_to_depth(d, Q).cpu().numpy(), regions,
+                                Q)
 
-@pytest.mark.parametrize("calib_dir", [None, "data"], ids=["raw", "calibrated"])
-def test_app_stream_equals_compute_on_card(dev, calib_dir):
+
+def _launched():
+    return {n for n, c in K.LAUNCHES.items() if c}
+
+
+def test_app_image_mode_on_card(dev):
+    """The app's image mode on the card: Teddy and Cones, GIF %BP(nonocc)
+    within 0.3 of the reference binary's (K1, K2, K3) and SGBM the
+    canonical display of the output chip_smoke.SGBM_SHA256 pins; the 'm'
+    key moving the GIF engine to the CPU (no launch, the same %BP band) and
+    back; one --timed frame (DispEst's stages: K3 alone)."""
+    import hashlib
+
+    import chip_smoke
+    from primestereomatch_torch import SGBMConfig, sgbm_display_u8, stereo_sgbm_forward
+    from primestereomatch_torch.app import AppConfig, StereoMatchApp
+    from primestereomatch_torch.hci import KeyLoop
+
+    gif = {"lowmaps", "wta", "wmf"}
+    for name, golden in chip_smoke.GOLDEN_NONOCC.items():
+        ga = StereoMatchApp(AppConfig(alg="STEREO_GIF", media_mode="image", dataset=name))
+        K.reset_launches()
+        assert abs(ga.compute().metrics.percent_bad_pixels - golden) <= 0.3
+        assert _launched() == gif
+        sa = StereoMatchApp(AppConfig(alg="STEREO_SGBM", media_mode="image", dataset=name))
+        got = sa.compute().l_disp
+        d16 = stereo_sgbm_forward(ga._sample.left_bgr, ga._sample.right_bgr, SGBMConfig())
+        assert hashlib.sha256(d16.cpu().numpy().tobytes()).hexdigest() == \
+            chip_smoke.SGBM_SHA256[name]
+        np.testing.assert_array_equal(got, sgbm_display_u8(d16, 1, 64).cpu().numpy())
+    golden = chip_smoke.GOLDEN_NONOCC["Teddy"]
+    ka = StereoMatchApp(AppConfig(alg="STEREO_GIF", media_mode="image", dataset="Teddy"))
+    feed = ["m"]
+    keys = KeyLoop(ka, reader=lambda: feed.pop(0) if feed else "", echo=lambda _: None)
+    for where, kernels in (("cpu", set()), ("cuda", gif)):
+        keys.pump()
+        assert ka.gif_device.type == where
+        K.reset_launches()
+        assert abs(ka.compute().metrics.percent_bad_pixels - golden) <= 0.3
+        assert _launched() == kernels
+        feed.append("m")
+    ta = StereoMatchApp(AppConfig(alg="STEREO_GIF", media_mode="image", dataset="Teddy",
+                                  timed=True))
+    K.reset_launches()
+    assert {"CVC", "CVF", "DispSel", "PP"} <= set(ta.compute().times_ms)
+    assert _launched() == {"wmf"}
+
+
+def test_cli_on_card(dev, monkeypatch, tmp_path, capsys):
+    """The CLI on the card: a --pipeline video run (one report line a
+    frame; K4, K2, K3 at 672 = 4 * 168) and an --out mosaic of Teddy read
+    back."""
+    from primestereomatch_torch import cli, hci
+    from primestereomatch_torch.utils import load_dataset
+    from primestereomatch_torch.utils.png import read_png
+
+    monkeypatch.setattr(hci, "_stdin_reader", lambda: "")
+    K.reset_launches()
+    assert cli.main(["-a", "STEREO_GIF", "--max-dis", "16", "--med-sz", "7", "--mask", "none",
+                     "--frames", "4", "--pipeline", "video", "--source", "synthetic"]) == 0
+    assert _launched() == {"cvc_lowmaps", "wta", "wmf"}
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("frame ")]
+    assert len(lines) == 4
+    assert cli.main(["-a", "STEREO_GIF", "--out", str(tmp_path), "image",
+                     "--dataset", "Teddy"]) == 0
+    mosaic = read_png(str(tmp_path / "frame_0000.png"), 3)
+    assert mosaic.shape == (750, 1350, 3)
+    np.testing.assert_array_equal(mosaic[:375, :450], load_dataset("Teddy").left_bgr)
+
+
+@pytest.mark.parametrize("case", ["raw", "calibrated", "sgbm"])
+def test_app_stream_equals_compute_on_card(dev, case):
     """StereoMatchApp on the card (AppConfig's default device): every frame
-    of stream() equals compute()'s bit for bit, and a yielded frame does not
-    change while later frames reuse the pinned ring's slots. The calibrated
-    stream rectifies 384x216 frames with the shipped calibration
-    (calib_size 1280x720) and returns the crops with the disparities."""
-    import pathlib
-
-    from primestereomatch_torch.app import RING, AppConfig, StereoMatchApp
+    of stream() equals compute()'s and the direct pipeline's (the source's
+    frames, the Rectifier's crops where calibrated, through
+    stereo_gif_forward) bit for bit, exactly K4, K2 and K3 launched, and a
+    yielded frame does not change while later frames reuse the pinned
+    ring's slots. The calibrated stream rectifies 384x216 frames with the
+    shipped calibration (calib_size 1280x720) and returns the crops with
+    the disparities. 'sgbm': the calibrated SGBM video (the stream falls
+    back to compute()): each frame the canonical display of
+    stereo_sgbm_forward on the crops (K6-K9)."""
+    from primestereomatch_torch import sgbm_display_u8, stereo_sgbm_forward
+    from primestereomatch_torch.app import RING, U8_TO_F32, AppConfig, StereoMatchApp
+    from primestereomatch_torch.calib import Rectifier
     from primestereomatch_torch.utils.video import SyntheticZEDSource
 
-    root = pathlib.Path(__file__).resolve().parents[1]
+    calib_dir = None if case == "raw" else str(ROOT / "data")
+    alg = "STEREO_SGBM" if case == "sgbm" else "STEREO_GIF"
+    n = 3 * RING + 1
+
+    def source():
+        return SyntheticZEDSource(width=384, height=216, n_frames=n, max_disparity=16,
+                                  smoothing=0)
 
     def make():
-        a = StereoMatchApp(AppConfig(
-            alg="STEREO_GIF", media_mode="video", max_dis=16, med_sz=7, mask_mode="none",
-            calib_dir=str(root / calib_dir) if calib_dir else None))
-        a._source = SyntheticZEDSource(width=384, height=216, n_frames=3 * RING + 1,
-                                       max_disparity=16, smoothing=0)
+        a = StereoMatchApp(AppConfig(alg=alg, media_mode="video", max_dis=16, med_sz=7,
+                                     mask_mode="none", calib_dir=calib_dir))
+        a._source = source()
         return a
 
     streamed, snaps = [], []
-    for res in make().stream(3 * RING + 1):
+    for res in make().stream(n):
         streamed.append(res)
         snaps.append([x.copy() for x in (res.l_disp, res.r_disp, res.left_bgr, res.right_bgr)])
-    assert len(streamed) == 3 * RING + 1
+    assert len(streamed) == n
     ref = make()
     assert ref.device.type == "cuda"
-    for res, snap in zip(streamed, snaps):
+    rec = Rectifier(_calibration(), (384, 216), calib_size=(1280, 720)) if calib_dir else None
+    K.reset_launches()
+    for res, snap, (l_raw, r_raw) in zip(streamed, snaps, source(), strict=True):
         want = ref.compute()
         got = (res.l_disp, res.r_disp, res.left_bgr, res.right_bgr)
         for g, s, w in zip(got, snap, (want.l_disp, want.r_disp, want.left_bgr,
                                        want.right_bgr)):
             np.testing.assert_array_equal(g, s)
             np.testing.assert_array_equal(g, w)
+        l8, r8 = (torch.as_tensor(x, device=dev) for x in (l_raw, r_raw))
+        if rec is not None:
+            l8, r8 = rec(l8, r8)
+        if alg == "STEREO_GIF":
+            direct = stereo_gif_forward(l8.to(torch.float32) * U8_TO_F32,
+                                        r8.to(torch.float32) * U8_TO_F32, ref.gif_cfg)
+        else:
+            direct = (sgbm_display_u8(stereo_sgbm_forward(l8, r8, ref.sgbm_cfg), 1,
+                                      ref.cfg.max_dis),)
+        for g, w in zip(got, direct):
+            np.testing.assert_array_equal(g, w.cpu().numpy())
+        np.testing.assert_array_equal(res.left_bgr, l8.cpu().numpy())
+        np.testing.assert_array_equal(res.right_bgr, r8.cpu().numpy())
+    assert {k for k, v in K.LAUNCHES.items() if v} == (
+        {"cvc_lowmaps", "wta", "wmf"} if alg == "STEREO_GIF"
+        else {"bt_cost", "sgbm_scan", "select", "speckle"})
     if calib_dir:
         assert streamed[0].left_bgr.shape == (156, 304, 3)
 
@@ -1101,8 +1307,8 @@ def _valid_plane(kind: str, shape, r: int, rng) -> np.ndarray:
     return v
 
 
-# the extended JointWMF tiles of the sharded phase of chip_smoke.py at 2K
-# (2 frames a rank, r = 9): y = 2, y = 4, y = 1 (d only), and b = 2
+# the extended JointWMF tiles of the tiled meshes at 2K (chip_smoke.WMF_TILES;
+# 2 frames a rank, r = 9): y = 2, y = 4, y = 1 (d only), and b = 2
 WMF_TILES = [(4, 624 + 18, 2208), (4, 312 + 18, 2208), (4, 1248 + 18, 2208),
              (2, 624 + 18, 2208)]
 # (shape, plane): the tiles on the planes the mesh makes and their worst
@@ -1181,10 +1387,13 @@ def _sharded_pair(B, H, W, seed=0):
     return left, right.astype(np.float32)
 
 
-def test_world_one_nccl_sharded_steps_are_the_direct_pipeline(dev):
+@pytest.mark.parametrize("size", ["small", "2k"])
+def test_world_one_nccl_sharded_steps_are_the_direct_pipeline(dev, size):
     """The one-card deployment: a world of 1 rank under NCCL, mesh
-    (1, 1, 1); the sharded GIF step (K4, K2, K3) and SGBM step (K6-K9) on 2
-    frames bitwise the direct pipelines."""
+    (1, 1, 1); the sharded GIF step (K4, K2, K3) and SGBM step (K6-K9, K6
+    and K8 once a frame) on 2 frames bitwise the direct pipelines. At 2K
+    (chip_smoke.synthetic_2k of seeds 0 and 1, rows reflected from 1242 to
+    1248, D = 256) the SGBM frames also recover the seeded field."""
     import socket
 
     import torch.distributed as dist
@@ -1197,40 +1406,103 @@ def test_world_one_nccl_sharded_steps_are_the_direct_pipeline(dev):
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
         port = sk.getsockname()[1]
+    import chip_smoke
+
+    if size == "2k":
+        pairs = [chip_smoke.synthetic_2k(seed) for seed in (0, 1)]
+        pad = ((0, 1248 - chip_smoke.H2K), (0, 0), (0, 0))
+        l, r = (np.stack([np.pad(p[v], pad, mode="reflect") for p in pairs]) for v in (0, 1))
+        cfg, scfg = GIFConfig(max_dis=256), SGBMConfig(num_disparities=256)
+    else:
+        l, r = _sharded_pair(2, 96, 160)
+        cfg, scfg = GIFConfig(max_dis=32, med_sz=9), SGBMConfig(num_disparities=32)
     assert initialize(f"localhost:{port}", 1, 0) == "nccl"
     try:
         mesh = make_mesh(MeshPlan(1, 1, 1))
-        cfg = GIFConfig(max_dis=32, med_sz=9)
-        l, r = _sharded_pair(2, 96, 160)
         K.reset_launches()
         lo, ro, (bsl, rows) = make_sharded_gif(mesh, cfg)(l, r)
         assert {k for k, v in K.LAUNCHES.items() if v} == {"cvc_lowmaps", "wta", "wmf"}
-        assert (bsl, rows) == (slice(0, 2), slice(0, 96))
+        assert (bsl, rows) == (slice(0, 2), slice(0, l.shape[1]))
         for i in range(2):
             want = stereo_gif_forward(l[i], r[i], cfg)
             assert torch.equal(lo[i], want[0]) and torch.equal(ro[i], want[1])
         lu = np.clip(np.rint(l * 255), 0, 255).astype(np.uint8)
         ru = np.clip(np.rint(r * 255), 0, 255).astype(np.uint8)
-        scfg = SGBMConfig(num_disparities=32)
         K.reset_launches()
         out, _ = make_sharded_sgbm(mesh, scfg)(lu, ru)
         assert {k for k, v in K.LAUNCHES.items() if v} == {"bt_cost", "sgbm_scan", "select",
                                                           "speckle"}
+        assert K.LAUNCHES["bt_cost"] == K.LAUNCHES["select"] == 2
         for i in range(2):
             assert torch.equal(out[i], stereo_sgbm_forward(lu[i], ru[i], scfg))
+            if size == "2k":
+                d16 = out[i].cpu().numpy()[:chip_smoke.H2K]
+                chip_smoke.check_medians_2k(np.where(d16 >= 0, d16 / 16.0, np.nan), None,
+                                            pairs[0][2])
     finally:
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("mesh_shape", ["1,2,2", "2,2,1"])
-def test_spawn_local_on_the_card(dev, mesh_shape):
-    """Four ranks sharing the card under gloo (host-staged collectives),
-    every block bitwise the single-device pipeline on the card."""
-    import socket
+TWO_K = dict(height=1248, width=2208, max_dis=256)
+MESHES = ["1,2,2", "2,2,1", "1,4,1", "1,1,4", "4,1,1"]
+# (mesh, launcher options, JointWMF): every mesh at the launcher's 96x64
+# frames, D = 16 (rows 128 for y = 4: a tile's rows must hold the 24-row
+# halo; the batch-only mesh on 4 frames), then at 2208x1248, D = 256, and
+# the tiled meshes at 2K without JointWMF
+SPAWN_CASES = ([(m, {"1,4,1": {"height": 128}, "4,1,1": {"batch": 4}}.get(m, {}), True)
+                for m in MESHES]
+               + [(m, {**TWO_K, "batch": 4 if m == "4,1,1" else 2}, True) for m in MESHES]
+               + [(m, {**TWO_K, "batch": 2}, False) for m in MESHES if m != "4,1,1"])
 
-    from primestereomatch_torch.parallel.launch import spawn_local
+
+@pytest.mark.parametrize("mesh_shape,kw,postprocess", SPAWN_CASES,
+                         ids=[m + ("-2k" if kw.get("width") else "") + ("" if pp else "-no_pp")
+                              for m, kw, pp in SPAWN_CASES])
+def test_spawn_local_on_the_card(dev, tmp_path, mesh_shape, kw, postprocess):
+    """Four ranks of the launcher's worker (the processes spawn_local
+    starts) sharing the card under gloo (host-staged collectives), each
+    in a spawned process (port_helpers.counted_launcher_rank): every block
+    bitwise the single-device pipeline on the card, and the sharded steps'
+    launches summed over the ranks exactly K1 and K3's valid mode on a
+    tiled mesh (K1 alone without JointWMF), K4, K2 and K3 on the
+    batch-only mesh."""
+    import json
+    import multiprocessing
+    import socket
+    import time
 
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
         port = sk.getsockname()[1]
-    assert spawn_local(4, port=port, mesh_shape=mesh_shape, check=True, timeout=300) == 0
+    argv = ["--mesh-shape", mesh_shape, "--check"]
+    for k, v in kw.items():
+        argv += [f"--{k.replace('_', '-')}", str(v)]
+    outs = [tmp_path / f"rank{r}.json" for r in range(4)]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=port_helpers.counted_launcher_rank,
+                         args=(r, port, argv, postprocess, str(out)))
+             for r, out in enumerate(outs)]
+    for pr in procs:
+        pr.start()
+    deadline = time.monotonic() + 300
+    while any(pr.is_alive() for pr in procs):
+        if any(pr.exitcode for pr in procs) or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    for pr in procs:
+        if pr.is_alive():
+            pr.kill()
+        pr.join()
+    assert [pr.exitcode for pr in procs] == [0] * 4
+    ranks = [json.loads(out.read_text()) for out in outs]
+    assert [r["rc"] for r in ranks] == [0] * 4
+    launches: dict = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    b, y, d = (int(t) for t in mesh_shape.split(","))
+    if y > 1 or d > 1:
+        want = {"lowmaps", "wmf_valid"} if postprocess else {"lowmaps"}
+    else:
+        want = {"cvc_lowmaps", "wta", "wmf"}
+    assert set(launches) == want, launches

@@ -140,16 +140,23 @@ def test_port_imports_nothing_of_jax():
     utils.display, utils.profiling, utils.video, app, hci, cli and the
     guarded __main__, which runs nothing on import, and the multi-device
     layer: parallel, parallel.mesh, parallel.sharded, parallel.launch and
-    the guarded launch alias), and the imports of chip_smoke.py and of every
-    tune_*.py script, load in a fresh interpreter without any jax or
-    primestereomatch_tpu module."""
+    the guarded launch alias), and the imports of chip_smoke.py, of the
+    tests' port_helpers.py and of every tune_*.py script, load in a fresh
+    interpreter without any jax or primestereomatch_tpu module. The imports
+    point one way: chip_smoke.py loads no tune_*.py script and builds no
+    kernel."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import primestereomatch_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, tune_bt_cost, tune_gif_tail, tune_scan, tune_select, tune_speckle\n"
-        "import tune_wmf\n"
+        "import chip_smoke\n"
+        "from primestereomatch_torch.kernels import _build\n"
+        "tune = sorted(n for n in sys.modules if n.startswith('tune_'))\n"
+        "assert not tune and not _build.BUILD_LOGS and not _build._FNS, (tune, _build._FNS)\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import port_helpers\n"
+        "import tune_bt_cost, tune_gif_tail, tune_scan, tune_select, tune_speckle, tune_wmf\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'primestereomatch_tpu'))\n"
         "assert not bad, bad\n"

@@ -9,9 +9,8 @@ takes are run-time arguments of the one library, so nothing is rebuilt:
 each shape (strip, d_chunk) of kernels/bt_cost.py::SHAPES runs at
 chip_smoke.py's SGBM shapes (Teddy 375x450, D=64 and the 2K pair rounded
 to uint8, D=256, block 5), must equal the plain version (Teddy) or the
-wrapper's pick (2K) bit for bit, and prints its CUDA-event time. chip_smoke.py calls `variant_ms` for the
-shapes it reports. Needs one CUDA card and nvcc, like chip_smoke.py;
-writes nothing.
+wrapper's pick (2K) bit for bit, and prints its CUDA-event time. Needs one
+CUDA card and nvcc, like chip_smoke.py; writes nothing.
 """
 
 from __future__ import annotations
@@ -21,42 +20,10 @@ import sys
 
 import torch
 
+import chip_smoke as cs
 from primestereomatch_torch import kernels as K
 from primestereomatch_torch.kernels import _build
 from primestereomatch_torch.kernels.bt_cost import SHAPES, launch, launch_shape, plan
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device ms per call over `iters` calls after a warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def profiled_ms(fn, kernel: str = "", iters: int = 20) -> float:
-    """Device ms per call of `fn` in the kernels whose names hold `kernel`
-    (all of them by default), from torch.profiler: the kernels' own time,
-    without the host's gaps between launches that back-to-back CUDA events
-    see at small shapes. Device rows are those with no host time, as in
-    chip_smoke.py's `profile_frames`."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if kernel in e.key and e.self_cpu_time_total == 0) / 1e3 / iters
 
 
 def variant_ms(lf: torch.Tensor, rf: torch.Tensor, D: int, k: int, cost_bound: int,
@@ -72,7 +39,7 @@ def variant_ms(lf: torch.Tensor, rf: torch.Tensor, D: int, k: int, cost_bound: i
         if not torch.equal(launch(fn, lf, rf, out, k, shape), want):
             raise AssertionError(f"K6 at strip {strip}, d_chunk {dc} differs from the shipped "
                                  f"shape")
-        res[(strip, dc)] = cuda_ms(lambda: launch(fn, lf, rf, out, k, shape))
+        res[(strip, dc)] = cs.cuda_ms(lambda: launch(fn, lf, rf, out, k, shape))
     return res
 
 
@@ -82,7 +49,6 @@ def main() -> int:
         return 1
     import numpy as np
 
-    import chip_smoke as cs
     import primestereomatch_torch as psm
     from primestereomatch_torch.ops import sgbm as sgbm_ops
 

@@ -22,21 +22,20 @@ K4 at several chunk lengths and K10 at other tile heights and chain counts
 (run-time arguments). Every variant's output must equal the shipped
 kernel's bit for bit, and the shipped kernels their plain versions at the
 small shapes; prints CUDA-event times at chip_smoke.py's shapes (Teddy,
-ZED-VGA, 2K, Teddy at subsample=1). chip_smoke.py calls `k1_variant_ms`,
-`wta_variant_ms`, `k4_variant_ms` and `k10_variant_ms` for the few
-variants it reports.
+ZED-VGA, 2K, Teddy at subsample=1).
 Needs one CUDA card and nvcc, like chip_smoke.py; writes nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
-import re
+import functools
 import subprocess
 import sys
 
 import torch
 
+import chip_smoke as cs
 from primestereomatch_torch import kernels as K
 from primestereomatch_torch.kernels import _build
 from primestereomatch_torch.kernels.cvc_lowmaps import cost_args, plan_chunks
@@ -70,29 +69,8 @@ K10_VARIANTS = [(512, 128, 1, 4, 64, 2), (512, 128, 1, 4, 64, 1), (256, 64, 2, 4
                 (512, 128, 1, 4, 32, 2)]
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device ms per call over `iters` calls after a warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def resources(log: str) -> dict:
-    """The most registers, stack and spill bytes over a build log's kernels."""
-    def most(pattern):
-        return max((int(m) for m in re.findall(pattern, log)), default=0)
-
-    return {"registers": most(r"Used (\d+) registers"),
-            "stack_bytes": most(r"(\d+) bytes stack frame"),
-            "spill_bytes": most(r"(\d+) bytes spill stores")}
+# the variants are many: 10 timed launches after 2 warm-up ones
+cuda_ms = functools.partial(cs.cuda_ms, iters=10, warmup=2)
 
 
 def build_wta(variants):
@@ -231,7 +209,6 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("tune_gif_tail: needs a CUDA card", file=sys.stderr)
         return 1
-    import chip_smoke as cs
     import primestereomatch_torch as psm
     from primestereomatch_torch.models.gif_pipeline import stacked_views
     from primestereomatch_torch.ops.cost_volume import sampled_cost_volumes
@@ -248,7 +225,7 @@ def main(argv) -> int:
         build_k4(K4_VARIANTS)
     build_k10(K10_VARIANTS)
     for key, log in _build.BUILD_LOGS.items():
-        print(f"ptxas {key}: at most {resources(log)}", flush=True)
+        print(f"ptxas {key}: at most {cs.resources(log)}", flush=True)
         if key.startswith("cvc_wta"):     # per box size: its template instance's line
             print("\n".join(f"  {line.strip()}" for line in log.splitlines()
                             if "registers" in line or "spill" in line), flush=True)

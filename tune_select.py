@@ -10,37 +10,24 @@ chip_smoke.py's SGBM costs (Teddy 375x450, D=64, and the 2K pair rounded to
 uint8, D=256), from the two uint16 partials and from the int32 S, must equal
 the plain version (Teddy) or the wrapper's pick (2K) bit for bit, and prints
 its CUDA-event time and its device time by the profiler (at Teddy the
-events also see the host's time a launch). chip_smoke.py calls
-`variant_ms` for the shapes it reports. Needs one CUDA card and nvcc, like
-chip_smoke.py; writes nothing.
+events also see the host's time a launch). Needs one CUDA card and nvcc,
+like chip_smoke.py; writes nothing.
 """
 
 from __future__ import annotations
 
-import re
 import subprocess
 import sys
 
 import torch
 
+import chip_smoke as cs
 from primestereomatch_torch import kernels as K
 from primestereomatch_torch.kernels import _build
 from primestereomatch_torch.kernels.select import MAX_THREADS, launch, launch_shape
-from tune_bt_cost import cuda_ms, profiled_ms
-from tune_gif_tail import resources
 
 # the shipped shape first
 THREADS_TRIED = (MAX_THREADS, 256, 128)
-
-
-def instance_resources(log: str, n_partials: int, shape: dict) -> dict:
-    """Registers, stack and spills of the kernel instance that `shape` runs,
-    from a build log of select.cu (its -Xptxas -v lines)."""
-    vec = shape["load_bytes"] // (4 if n_partials == 0 else 2)
-    name = (f"select_kernelILi{n_partials}ELi{vec}ELi{shape['lanes']}"
-            f"ELi{shape['values_per_lane']}E")
-    part = next((p for p in re.split(r"Compiling entry function", log) if name in p), "")
-    return resources(part)
 
 
 def variant_ms(costs: tuple, n_partials: int, sel: tuple, want: torch.Tensor,
@@ -59,7 +46,7 @@ def variant_ms(costs: tuple, n_partials: int, sel: tuple, want: torch.Tensor,
         def run():
             launch(fn, costs, n_partials, *sel, shape)
 
-        res[t] = (cuda_ms(run), profiled_ms(run, "select_kernel"))
+        res[t] = (cs.cuda_ms(run), cs.profiled_ms(run, "select_kernel"))
     return res
 
 
@@ -69,7 +56,6 @@ def main() -> int:
         return 1
     import numpy as np
 
-    import chip_smoke as cs
     import primestereomatch_torch as psm
     from primestereomatch_torch.ops import sgbm as sgbm_ops
 
@@ -100,7 +86,7 @@ def main() -> int:
             shipped = launch_shape(*S.shape, n_partials)
             print(f"{name} from {n_partials or 'the int32 S'} "
                   f"{'partials' if n_partials else ''}: (H, W, D) = {tuple(S.shape)}, shipped "
-                  f"{shipped}, {instance_resources(log, n_partials, shipped)}", flush=True)
+                  f"{shipped}, {cs.instance_resources(log, n_partials, shipped)}", flush=True)
             for t, (ms, dev_ms) in variant_ms(costs, n_partials, sel, want).items():
                 print(f"  K8 at {t} threads: {ms:.4f} ms, device {dev_ms:.4f} ms, "
                       f"0 values differ", flush=True)

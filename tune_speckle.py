@@ -13,9 +13,8 @@ D=256), must equal the plain version bit for bit, and prints its
 CUDA-event time (the C entry called directly) beside that of the hook as
 plain-torch ops; then
 speckle.cu is built once per staging depth of DEPTHS (elements a thread
-stages at once, a -D knob) and each is timed at the shipped shape.
-chip_smoke.py calls `variant_ms` for the shapes it reports. Needs one CUDA
-card and nvcc, like chip_smoke.py; writes nothing.
+stages at once, a -D knob) and each is timed at the shipped shape. Needs
+one CUDA card and nvcc, like chip_smoke.py; writes nothing.
 """
 
 from __future__ import annotations
@@ -25,10 +24,10 @@ import sys
 
 import torch
 
+import chip_smoke as cs
 from primestereomatch_torch import kernels as K
 from primestereomatch_torch.kernels import _build
 from primestereomatch_torch.kernels.speckle import launch_shape
-from tune_bt_cost import cuda_ms
 
 # (rows a block, warps a row, columns a block, warps a column); the
 # shipped shape first, then one warp a line
@@ -55,7 +54,7 @@ def _timed_sweeps(fn, labels: torch.Tensor, links: torch.Tensor, blocks) -> floa
     run()
     if not torch.equal(out, K.speckle_sweep_plain(labels, links)):
         raise AssertionError(f"K9 with blocks {blocks} differs from its plain version")
-    return cuda_ms(run)
+    return cs.cuda_ms(run)
 
 
 def variant_ms(labels: torch.Tensor, links: torch.Tensor, shapes=SHAPES) -> dict:
@@ -79,7 +78,6 @@ def main() -> int:
         return 1
     import numpy as np
 
-    import chip_smoke as cs
     import primestereomatch_torch as psm
 
     dev = torch.device("cuda")
@@ -96,7 +94,7 @@ def main() -> int:
                                                  torch.as_tensor(right, device=dev))
         print(f"{name}: (H, W) = {tuple(labels.shape)}, shipped shape "
               f"{launch_shape(*labels.shape)}; the hook as plain-torch ops "
-              f"{cuda_ms(lambda: cs.hook_as_torch_ops(labels, conns)):.4f} ms", flush=True)
+              f"{cs.cuda_ms(lambda: cs.hook_as_torch_ops(labels, conns)):.4f} ms", flush=True)
         for shape, ms in variant_ms(labels, links).items():
             print(f"  K9 (rows, warps a row, cols, warps a column) = {shape}: {ms:.4f} ms a "
                   f"sweep, 0 labels differ",
