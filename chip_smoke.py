@@ -734,7 +734,7 @@ def sgbm_parity(name: str, cfg, left_u8, right_u8, dev, report, plain=(ITERS, WA
     # its route and, on the sweeps, their plan: strips, their width, warps,
     # blocks an SM (the cooperative launch's residency); its instances'
     # registers
-    k7_route = sgbm_scan.route(cost, nd, cost_bound, cfg.p2)
+    k7_route = sgbm_scan.route(cost, nd, cost_bound, cfg.p1, cfg.p2)
     row["sgbm_scan"]["design"] = {
         "route": k7_route, **(sgbm_scan.plan(cost)._asdict() if k7_route == "sweeps" else {}),
         **resources(_build.BUILD_LOGS.get("sgbm_scan", ""))}
@@ -842,7 +842,7 @@ def k7_launches(H: int, W: int, cfg, dev) -> int:
                        dtype=torch.int16 if bound < 2**15 else torch.int32)
     nd = cfg.num_directions
     return {"sweeps": 1, "paths": len(sgbm_scan._PATH_LAUNCHES[nd]),
-            "int32": len(sgbm_scan._FAMILIES[nd])}[sgbm_scan.route(cost, nd, bound, cfg.p2)]
+            "int32": len(sgbm_scan._FAMILIES[nd])}[sgbm_scan.route(cost, nd, bound, cfg.p1, cfg.p2)]
 
 
 def frame_ms(run, iters: int) -> float:

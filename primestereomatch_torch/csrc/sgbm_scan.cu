@@ -74,8 +74,9 @@
 //   * A sweep is one block per strip of SW columns and a warp per C of the
 //     strip's columns (sweep_plan: strips from the SM count, C from SW and
 //     the registers). Each warp walks every row of the image over its
-//     columns, lanes over d as above (VPL = 8); the N, NW and NE states of
-//     its columns stay in the warp's registers from one row to the next.
+//     columns, lanes over d as above (VPL = 8, packed as below); the N, NW
+//     and NE states of its columns stay in the warp's registers from one row
+//     to the next.
 //   * A row is two passes over the warp's columns. First the vertical
 //     directions, which need only the row above: inside the warp from its
 //     registers, at its first column NW(r-1) of the column to the left and
@@ -88,8 +89,9 @@
 //     shared memory, two rows of slots, with a count per warp of the rows
 //     whose vertical pass and whose W->E pass it has handed on (release
 //     stores, acquire polls). Neighbouring strips pass them through device
-//     memory: slots of 64-bit words, each an L and the 32-bit tag of its
-//     row (a sequence the wrapper advances every launch, plus the row),
+//     memory: slots of 64-bit words, each a packed word of two L (below)
+//     and the 32-bit tag of its row (a sequence the wrapper advances every
+//     launch, plus the row),
 //     which the reader polls until every word carries the tag it wants:
 //     value and flag in one single-copy-atomic word, so no fence and no
 //     reset between launches. A ring of RING_ROWS rows of slots is enough:
@@ -102,6 +104,39 @@
 //   * A warp's costs come in a ring in shared memory, a stage a row of its
 //     columns, NSTAGE - 1 rows ahead, filled by cp.async as above; both
 //     passes of a row read them there.
+//   * Every value of a step fits 16 bits, so a lane keeps its 8 disparities
+//     as 4 32-bit words, d0 + 2k in the low half of word k and d0 + 2k + 1
+//     in the high half, as the int16 costs and the uint16 sums lie in memory:
+//     the states, the slots, the costs (read from the ring as they are) and
+//     the sums. Word k's lower neighbours are one __byte_perm of words k - 1
+//     and k (the lane's edges by the two shuffles), its upper ones word
+//     k + 1's; min(P, min(lo, hi) + P1, minL + P2) is Hopper's u16x2 DPX
+//     min3 and add-min, two disparities an instruction; C + best - minL is
+//     one 32-bit add; the sums 32-bit adds; minL a u16x2 min over the words,
+//     the lesser half, the warp's reduction. That is exact only where no
+//     half carries into the next or borrows from it, i.e. where every value
+//     and every intermediate lies in [0, 2^16). The wrapper sends the sweeps
+//     only penalties and cost bounds that make it so
+//     (kernels/sgbm_scan.py::halves_hold, held by its tests):
+//       - P1, P2 >= 0 and costs in [0, cost_bound]: L in [0, cost_bound + P2]
+//         (above), minL + P2 <= cost_bound + 2 P2 < 2^16;
+//       - a P1 above P2 is taken as P2 (psm_sgm_sweep): every neighbour holds
+//         at least minL, so min(lo, hi) + P1 >= minL + P2 with either, and the
+//         term never wins. So minL + P2 - P1 >= 0, and the add-min adds P1 to
+//         at most minL + P2 - P1: no carry;
+//       - C + best - minL is L: each half's result is in range, so the 32-bit
+//         add is the two 16-bit ones;
+//       - at d >= D the state before a path and the lanes' edges hold BIG =
+//         2^16 - 1 - P1, above every L (cost_bound + P2 + P1 < 2^16 - 1), and
+//         the costs 2^16 - 1 - P2: a step adds best - minL, which lies in
+//         [0, P2], to the cost, so such a half stays in [2^16 - 1 - P2,
+//         2^16 - 1], at or above every L, and needs no fixing. A pad half sits above every real
+//         one of its word, so what a sum carries out of it goes into another
+//         pad half or out of the word;
+//       - a group's sum is at most g (cost_bound + P2) < 2^16 (the partials'
+//         rule).
+//     Against one int32 a disparity, a step takes half the instructions and
+//     registers, and a slot, an edge word or a sum half the words.
 //
 // Layout: cost (H, W, D) int16 or int32; sums (H, W, D) uint16 or int32.
 
@@ -369,13 +404,19 @@ constexpr long long PATIENCE_NS = 10000000000LL;
 // neighbour warp's count in shared memory, a neighbour strip's edge (no
 // other value of either moved a 2K launch by 1%)
 constexpr unsigned NAP_NS = 32, EDGE_NAP_NS = 64;
-// the disparities the sweeps take (kernels/sgbm_scan.py's rule): VPL = 8
+// the disparities the sweeps take (kernels/sgbm_scan.py's rule): VPL = 8,
+// as WPL = 4 words of two
 constexpr int SWEEP_VPL = 8, SWEEP_MIN_D = 129, SWEEP_MAX_D = 256;
+constexpr int WPL = SWEEP_VPL / 2;
+// a half's largest value (kernels/sgbm_scan.py's HALF - 1)
+constexpr int HALF_MAX = 0xffff;
 // the plan's fields (int64 each), shared with kernels/sgbm_scan.py
 enum { P_NSTRIPS, P_SW, P_WARPS, P_COLS, P_SMEM, P_BLOCKS, P_EDGE_BYTES, P_SMS, P_LEN };
 
 // the most columns a warp holds: their three states and sums in registers
 constexpr int SWEEP_COLS = 3;
+// shared memory before the slots: each warp's two counts, in 16-byte units
+constexpr int COUNTS_B = (2 * SWEEP_WARPS * (int)sizeof(int) + 15) / 16 * 16;
 
 struct Sweep {
   void* out;       // (H, W, D) uint16 sums of the sweep's directions
@@ -385,8 +426,18 @@ struct Sweep {
 
 struct Plan {
   int nstrips, sw, cols, cpb, vec_ok;
-  unsigned long long* edges;   // [sweep][strip][KINDS][RING_ROWS][32 * SWEEP_VPL]
+  unsigned long long* edges;   // [sweep][strip][KINDS][RING_ROWS][32 * WPL]
 };
+
+// The penalties as the step uses them: P1 (at most P2), P2, and P1 and BIG
+// in both halves of a word.
+struct Pen {
+  int p1, p2;
+  unsigned p1x2, big2;
+};
+
+// v in both halves of a word
+__device__ __forceinline__ unsigned pair(int v) { return (unsigned)v * 0x10001u; }
 
 __device__ __forceinline__ int load_progress(const int* p) {
   int v;
@@ -424,58 +475,56 @@ struct Patience {
   }
 };
 
-// The state before a path's first pixel: L = 0 (BIG for d >= D), minL 0.
-template <int VPL>
-__device__ __forceinline__ int zero(int (&P)[VPL], int pad_from) {
+// The state before a path's first pixel: L = 0 (BIG for d >= D, from the
+// lane's pad_from-th half on), minL 0.
+__device__ __forceinline__ int zero(unsigned (&P)[WPL], int pad_from, unsigned big2) {
 #pragma unroll
-  for (int j = 0; j < VPL; ++j) P[j] = j < pad_from ? 0 : BIG;
+  for (int k = 0; k < WPL; ++k)
+    P[k] = 2 * k >= pad_from ? big2 : 2 * k + 1 >= pad_from ? big2 & 0xffff0000u : 0u;
   return 0;
 }
 
-template <int VPL>
-__device__ __forceinline__ int warp_min(const int (&P)[VPL]) {
-  int mn = P[0];
+__device__ __forceinline__ int warp_min(const unsigned (&P)[WPL]) {
+  unsigned m = P[0];
+  int k = 1;
 #pragma unroll
-  for (int j = 1; j < VPL; ++j) mn = min(mn, P[j]);
-  return __reduce_min_sync(FULL, mn);
+  for (; k + 1 < WPL; k += 2) m = __vimin3_u16x2(m, P[k], P[k + 1]);
+  if (k < WPL) m = __vminu2(m, P[k]);
+  return (int)__reduce_min_sync(FULL, min(m & 0xffffu, m >> 16));
 }
 
-// One step of a direction: predecessor P (its minL mp), costs c -> L; returns minL.
-template <int VPL>
-__device__ __forceinline__ int dp(const int (&P)[VPL], int mp, const int (&c)[VPL],
-                                  int (&L)[VPL], int p1, int p2, int lane, int pad_from) {
-  int below = __shfl_up_sync(FULL, P[VPL - 1], 1);   // P[d0 - 1]
-  int above = __shfl_down_sync(FULL, P[0], 1);       // P[d0 + VPL]
-  if (lane == 0) below = BIG;
-  if (lane == 31) above = BIG;
-  const int cap = mp + p2;
+// One step of a direction: predecessor P (its minL mp), costs c -> L; returns
+// minL. Word k's lower neighbours (d - 1 of each half) are the high half of
+// word k - 1 and the low half of word k; its upper ones are word k + 1's.
+__device__ __forceinline__ int dp(const unsigned (&P)[WPL], int mp, const unsigned (&c)[WPL],
+                                  unsigned (&L)[WPL], const Pen& pen, int lane) {
+  unsigned below = __shfl_up_sync(FULL, P[WPL - 1], 1);   // its high half: P[d0 - 1]
+  unsigned above = __shfl_down_sync(FULL, P[0], 1);       // its low half: P[d0 + VPL]
+  if (lane == 0) below = pen.big2;
+  if (lane == 31) above = pen.big2;
+  // min(P, min(lo, hi) + p1, mp + p2) as min(min(lo, hi, mp + p2 - p1) + p1, P),
+  // both halves at once; C + best - mp as one 32-bit add (no half carries)
+  const unsigned capm = pair(mp + pen.p2 - pen.p1), mp2 = pair(mp);
+  unsigned lo = __byte_perm(below, P[0], 0x5432);
 #pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    const int lo = j > 0 ? P[j - 1] : below;
-    const int hi = j < VPL - 1 ? P[j + 1] : above;
-    // min(P, min(lo, hi) + p1, cap) as min(min(lo, hi, cap - p1) + p1, P),
-    // two of Hopper's DPX instructions (4% of a 2K launch against four mins)
-    L[j] = c[j] + __viaddmin_s32(__vimin3_s32(lo, hi, cap - p1), p1, P[j]) - mp;
-  }
-  if (pad_from < VPL) {            // the lane holds d >= D
-#pragma unroll
-    for (int j = 0; j < VPL; ++j)
-      if (j >= pad_from) L[j] = BIG;
+  for (int k = 0; k < WPL; ++k) {
+    const unsigned hi = __byte_perm(P[k], k + 1 < WPL ? P[k + 1] : above, 0x5432);
+    L[k] = c[k] + __viaddmin_u16x2(__vimin3_u16x2(lo, hi, capm), pen.p1x2, P[k]) - mp2;
+    lo = hi;
   }
   return warp_min(L);
 }
 
 // A neighbour strip's edge L for the row whose tag is `tag`; returns its minL.
-template <int VPL>
 __device__ __forceinline__ int read_edge(const unsigned long long* slot, unsigned tag,
-                                         int (&P)[VPL], int d0) {
+                                         unsigned (&P)[WPL], int w0) {
   Patience wait;
   for (;;) {
     bool ok = true;
 #pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      const unsigned long long w = load_word(slot + d0 + j);
-      P[j] = (int)(unsigned)w;
+    for (int k = 0; k < WPL; ++k) {
+      const unsigned long long w = load_word(slot + w0 + k);
+      P[k] = (unsigned)w;
       ok &= (unsigned)(w >> 32) == tag;
     }
     if (__all_sync(FULL, ok)) break;
@@ -485,18 +534,15 @@ __device__ __forceinline__ int read_edge(const unsigned long long* slot, unsigne
   return warp_min(P);
 }
 
-template <int VPL>
 __device__ __forceinline__ void write_edge(unsigned long long* slot, unsigned tag,
-                                           const int (&L)[VPL], int d0) {
+                                           const unsigned (&L)[WPL], int w0) {
 #pragma unroll
-  for (int j = 0; j < VPL; ++j)
-    store_word(slot + d0 + j, (unsigned long long)tag << 32 | (unsigned)L[j]);
+  for (int k = 0; k < WPL; ++k) store_word(slot + w0 + k, (unsigned long long)tag << 32 | L[k]);
 }
 
 // A neighbour warp's slot, once its count has reached `need`; returns its minL.
-template <int VPL>
-__device__ __forceinline__ int read_slot(const int* count, int need, const int* s,
-                                         int (&P)[VPL]) {
+__device__ __forceinline__ int read_slot(const int* count, int need, const unsigned* s,
+                                         unsigned (&P)[WPL]) {
   if (load_progress(count) < need) {
     Patience wait;
     do {
@@ -504,39 +550,38 @@ __device__ __forceinline__ int read_slot(const int* count, int need, const int* 
       wait.tick();
     } while (load_progress(count) < need);
   }
-  const Pack<int, VPL> v = *(const Pack<int, VPL>*)s;
+  const Pack<unsigned, WPL> v = *(const Pack<unsigned, WPL>*)s;
 #pragma unroll
-  for (int j = 0; j < VPL; ++j) P[j] = v.e[j];
+  for (int k = 0; k < WPL; ++k) P[k] = v.e[k];
   return warp_min(P);
 }
 
-template <int VPL>
-__device__ __forceinline__ void write_slot(int* s, const int (&L)[VPL]) {
-  Pack<int, VPL> v;
+__device__ __forceinline__ void write_slot(unsigned* s, const unsigned (&L)[WPL]) {
+  Pack<unsigned, WPL> v;
 #pragma unroll
-  for (int j = 0; j < VPL; ++j) v.e[j] = L[j];
-  *(Pack<int, VPL>*)s = v;
+  for (int k = 0; k < WPL; ++k) v.e[k] = L[k];
+  *(Pack<unsigned, WPL>*)s = v;
 }
 
-template <int VPL>
-__device__ __forceinline__ void copy(int (&to)[VPL], const int (&from)[VPL]) {
+__device__ __forceinline__ void copy(unsigned (&to)[WPL], const unsigned (&from)[WPL]) {
 #pragma unroll
-  for (int j = 0; j < VPL; ++j) to[j] = from[j];
+  for (int k = 0; k < WPL; ++k) to[k] = from[k];
 }
 
-template <int VPL>
-__device__ __forceinline__ void load_costs(const char* slot, int (&c)[VPL]) {
-  const Pack<int16_t, VPL> v = *(const Pack<int16_t, VPL>*)slot;
+// a lane's costs as they lie in the ring: int16 pairs, every one in [0, 2^15)
+__device__ __forceinline__ void load_costs(const char* slot, unsigned (&c)[WPL]) {
+  const Pack<unsigned, WPL> v = *(const Pack<unsigned, WPL>*)slot;
 #pragma unroll
-  for (int j = 0; j < VPL; ++j) c[j] = (int)v.e[j];
+  for (int k = 0; k < WPL; ++k) c[k] = v.e[k];
 }
 
 template <int VPL>
 __global__ void __launch_bounds__(SWEEP_WARPS * 32)
 sgm_scan_kernel(const int16_t* __restrict__ cost, Sweep s0, Sweep s1, Plan pl, int H, int W,
                 int D, int p1, int p2, unsigned seq) {
+  static_assert(VPL == SWEEP_VPL, "the sweeps hold 8 disparities a lane");
   extern __shared__ uint4 smem_raw[];
-  constexpr int DP = 32 * VPL;
+  constexpr int DP = 32 * VPL, DW = 32 * WPL;
   constexpr int SLOT_B = DP * (int)sizeof(int16_t);
   constexpr int CMAX = SWEEP_COLS;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
@@ -547,25 +592,26 @@ sgm_scan_kernel(const int16_t* __restrict__ cost, Sweep s0, Sweep s1, Plan pl, i
   const int C = pl.cols;                           // columns a warp
   const int c0 = warp * C, cw = min(C, cols - c0);  // the warp's first column, its count
   const int last = (cols - 1) / C;                 // the strip's last warp with columns
-  const int d0 = lane * VPL;
+  const int d0 = lane * VPL, w0 = lane * WPL;
   const int pad_from = max(0, min(VPL, D - d0));
+  const Pen pen = {p1, p2, pair(p1), pair(HALF_MAX - p1)};
 
   // shared memory: each warp's counts of rows handed on (vertical pass,
-  // W->E pass), its slots for its neighbours ([kind][row % 2][DP]: W->E and
+  // W->E pass), its slots for its neighbours ([kind][row % 2][DW]: W->E and
   // NW of its last column, NE of its first), its ring
   char* smem = (char*)smem_raw;
   int* vdone = (int*)smem;                         // [SWEEP_WARPS]
   int* edone = vdone + SWEEP_WARPS;                // [SWEEP_WARPS]
-  int* xs = edone + SWEEP_WARPS;                   // [nw][KINDS][2][DP]
+  unsigned* xs = (unsigned*)(smem + COUNTS_B);     // [nw][KINDS][2][DW]
   auto xslot = [&](int w, int kind, int r) {
-    return xs + (((size_t)w * KINDS + kind) * 2 + (r & 1)) * DP + d0;
+    return xs + (((size_t)w * KINDS + kind) * 2 + (r & 1)) * DW + w0;
   };
-  char* const ring = (char*)(xs + (size_t)nw * KINDS * 2 * DP) +
+  char* const ring = (char*)(xs + (size_t)nw * KINDS * 2 * DW) +
                      (size_t)warp * NSTAGE * C * SLOT_B;
   unsigned long long* const edges =
-      pl.edges + (size_t)blockIdx.y * pl.nstrips * KINDS * RING_ROWS * DP;
+      pl.edges + (size_t)blockIdx.y * pl.nstrips * KINDS * RING_ROWS * DW;
   auto slot = [&](int s, int kind, int r) {
-    return edges + (((size_t)s * KINDS + kind) * RING_ROWS + r % RING_ROWS) * DP;
+    return edges + (((size_t)s * KINDS + kind) * RING_ROWS + r % RING_ROWS) * DW;
   };
 
   if (threadIdx.x < 2 * SWEEP_WARPS) vdone[threadIdx.x] = 0;
@@ -608,6 +654,12 @@ sgm_scan_kernel(const int16_t* __restrict__ cost, Sweep s0, Sweep s1, Plan pl, i
       }
     }
   };
+  // the ring's costs at d >= D hold 2^16 - 1 - P2 for good (the copies
+  // write a pixel's D costs only): a step leaves such a half in
+  // [2^16 - 1 - P2, 2^16 - 1], above every L and without a carry
+  for (int s = 0; s < NSTAGE * C && pad_from < VPL; ++s)
+    for (int j = pad_from; j < VPL; ++j)
+      ((uint16_t*)(ring + (size_t)s * SLOT_B))[d0 + j] = (uint16_t)(HALF_MAX - p2);
   for (int r = 0; r < NSTAGE - 1; ++r) {
     if (r < H) fetch(r);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -615,13 +667,13 @@ sgm_scan_kernel(const int16_t* __restrict__ cost, Sweep s0, Sweep s1, Plan pl, i
 
   // the row above's states of the warp's columns; Sne one longer, for the
   // state that enters from the right
-  int Sn[CMAX][VPL], Snw[CMAX][VPL], Sne[CMAX + 1][VPL];
+  unsigned Sn[CMAX][WPL], Snw[CMAX][WPL], Sne[CMAX + 1][WPL];
   int mSn[CMAX], mSnw[CMAX], mSne[CMAX + 1];
 #pragma unroll
   for (int c = 0; c < CMAX; ++c) {
-    mSn[c] = zero(Sn[c], pad_from);
-    mSnw[c] = zero(Snw[c], pad_from);
-    mSne[c] = zero(Sne[c], pad_from);
+    mSn[c] = zero(Sn[c], pad_from, pen.big2);
+    mSnw[c] = zero(Snw[c], pad_from, pen.big2);
+    mSne[c] = zero(Sne[c], pad_from, pen.big2);
   }
 
   for (int r = 0; r < H; ++r) {
@@ -635,25 +687,27 @@ sgm_scan_kernel(const int16_t* __restrict__ cost, Sweep s0, Sweep s1, Plan pl, i
     uint16_t* const orow = out + base + r * rstep + d0;
 
     // the vertical pass: NW(r-1) enters from the left, NE(r-1) from the right
-    int Pnw[VPL], mpnw;
+    unsigned Pnw[WPL];
+    int mpnw;
     {
-      int Pin[VPL], mpin;
+      unsigned Pin[WPL];
+      int mpin;
       if (r == 0) {
-        mpnw = zero(Pnw, pad_from);
-        mpin = zero(Pin, pad_from);
+        mpnw = zero(Pnw, pad_from, pen.big2);
+        mpin = zero(Pin, pad_from, pen.big2);
       } else {
         if (warp > 0)
           mpnw = read_slot(&vdone[warp - 1], r, xslot(warp - 1, K_NW, r - 1), Pnw);
         else if (left)
-          mpnw = read_edge(slot(strip - 1, K_NW, r - 1), tag - 1, Pnw, d0);
+          mpnw = read_edge(slot(strip - 1, K_NW, r - 1), tag - 1, Pnw, w0);
         else
-          mpnw = zero(Pnw, pad_from);
+          mpnw = zero(Pnw, pad_from, pen.big2);
         if (warp < last)
           mpin = read_slot(&vdone[warp + 1], r, xslot(warp + 1, K_NE, r - 1), Pin);
         else if (right)
-          mpin = read_edge(slot(strip + 1, K_NE, r - 1), tag - 1, Pin, d0);
+          mpin = read_edge(slot(strip + 1, K_NE, r - 1), tag - 1, Pin, w0);
         else
-          mpin = zero(Pin, pad_from);
+          mpin = zero(Pin, pad_from, pen.big2);
       }
 #pragma unroll
       for (int c = 1; c <= CMAX; ++c)
@@ -662,15 +716,15 @@ sgm_scan_kernel(const int16_t* __restrict__ cost, Sweep s0, Sweep s1, Plan pl, i
           mSne[c] = mpin;
         }
     }
-    int sum[CMAX][VPL];
+    unsigned sum[CMAX][WPL];
 #pragma unroll
     for (int c = 0; c < CMAX; ++c) {
       if (c < cw) {
-        int cv[VPL], Ln[VPL], Lnw[VPL], Lne[VPL];
+        unsigned cv[WPL], Ln[WPL], Lnw[WPL], Lne[WPL];
         load_costs(stage + c * SLOT_B, cv);
-        const int mn = dp(Sn[c], mSn[c], cv, Ln, p1, p2, lane, pad_from);
-        const int mnw = dp(Pnw, mpnw, cv, Lnw, p1, p2, lane, pad_from);
-        const int mne = dp(Sne[c + 1], mSne[c + 1], cv, Lne, p1, p2, lane, pad_from);
+        const int mn = dp(Sn[c], mSn[c], cv, Ln, pen, lane);
+        const int mnw = dp(Pnw, mpnw, cv, Lnw, pen, lane);
+        const int mne = dp(Sne[c + 1], mSne[c + 1], cv, Lne, pen, lane);
         copy(Pnw, Snw[c]);                   // the old NW at c: the next column's predecessor
         mpnw = mSnw[c];
         copy(Sn[c], Ln);
@@ -680,59 +734,60 @@ sgm_scan_kernel(const int16_t* __restrict__ cost, Sweep s0, Sweep s1, Plan pl, i
         copy(Sne[c], Lne);
         mSne[c] = mne;
 #pragma unroll
-        for (int j = 0; j < VPL; ++j)
-          sum[c][j] = sw.dirs == ALL ? Ln[j] + Lnw[j] + Lne[j]
-                                     : (sw.dirs & NN ? Ln[j] : 0) + (sw.dirs & NW ? Lnw[j] : 0) +
-                                           (sw.dirs & NE ? Lne[j] : 0);
+        for (int k = 0; k < WPL; ++k)
+          sum[c][k] = sw.dirs == ALL ? Ln[k] + Lnw[k] + Lne[k]
+                                     : (sw.dirs & NN ? Ln[k] : 0u) + (sw.dirs & NW ? Lnw[k] : 0u) +
+                                           (sw.dirs & NE ? Lne[k] : 0u);
       }
     }
     // hand on NE(r) of the first column and NW(r) of the last
     if (warp > 0)
       write_slot(xslot(warp, K_NE, r), Sne[0]);
     else if (left)
-      write_edge(slot(strip, K_NE, r), tag, Sne[0], d0);
+      write_edge(slot(strip, K_NE, r), tag, Sne[0], w0);
 #pragma unroll
     for (int c = 0; c < CMAX; ++c)
       if (c == cw - 1) {
         if (warp < last)
           write_slot(xslot(warp, K_NW, r), Snw[c]);
         else if (right)
-          write_edge(slot(strip, K_NW, r), tag, Snw[c], d0);
+          write_edge(slot(strip, K_NW, r), tag, Snw[c], w0);
       }
     __syncwarp();                            // every lane's slots are written
     if (lane == 0) store_progress(&vdone[warp], r + 1);
 
     // the W->E pass, once the chain reaches the warp's first column
-    int Pwe[VPL], mwe;
+    unsigned Pwe[WPL];
+    int mwe;
     if (warp > 0)
       mwe = read_slot(&edone[warp - 1], r + 1, xslot(warp - 1, K_WE, r), Pwe);
     else if (left)
-      mwe = read_edge(slot(strip - 1, K_WE, r), tag, Pwe, d0);
+      mwe = read_edge(slot(strip - 1, K_WE, r), tag, Pwe, w0);
     else
-      mwe = zero(Pwe, pad_from);
+      mwe = zero(Pwe, pad_from, pen.big2);
 #pragma unroll
     for (int c = 0; c < CMAX; ++c) {
       if (c < cw) {
-        int cv[VPL], Lwe[VPL];
+        unsigned cv[WPL], Lwe[WPL];
         load_costs(stage + c * SLOT_B, cv);
-        mwe = dp(Pwe, mwe, cv, Lwe, p1, p2, lane, pad_from);
+        mwe = dp(Pwe, mwe, cv, Lwe, pen, lane);
         copy(Pwe, Lwe);
         uint16_t* const o = orow + c * xstep;
         if (sw.dirs & WE) {
 #pragma unroll
-          for (int j = 0; j < VPL; ++j) sum[c][j] += Lwe[j];
+          for (int k = 0; k < WPL; ++k) sum[c][k] += Lwe[k];
         }
         if (pl.vec_ok) {                     // D % VPL == 0: a lane is all in or all out
           if (pad_from == VPL) {
-            Pack<uint16_t, VPL> res;
+            Pack<unsigned, WPL> res;
 #pragma unroll
-            for (int j = 0; j < VPL; ++j) res.e[j] = (uint16_t)sum[c][j];
-            *(Pack<uint16_t, VPL>*)o = res;
+            for (int k = 0; k < WPL; ++k) res.e[k] = sum[c][k];
+            *(Pack<unsigned, WPL>*)o = res;
           }
         } else {
 #pragma unroll
           for (int j = 0; j < VPL; ++j)
-            if (j < pad_from) o[j] = (uint16_t)sum[c][j];
+            if (j < pad_from) o[j] = (uint16_t)(sum[c][j / 2] >> (16 * (j & 1)));
         }
       }
     }
@@ -740,7 +795,7 @@ sgm_scan_kernel(const int16_t* __restrict__ cost, Sweep s0, Sweep s1, Plan pl, i
     if (warp < last)
       write_slot(xslot(warp, K_WE, r), Pwe);
     else if (right)
-      write_edge(slot(strip, K_WE, r), tag, Pwe, d0);
+      write_edge(slot(strip, K_WE, r), tag, Pwe, w0);
     __syncwarp();
     if (lane == 0) store_progress(&edone[warp], r + 1);
   }
@@ -760,8 +815,8 @@ int sweep_copy_bytes(size_t pixel_bytes, const void* cost) {
 // strip's columns, at most SWEEP_COLS; where that needs more than
 // SWEEP_WARPS warps, strips of SWEEP_WARPS warps, and more of them.
 cudaError_t sweep_plan(int W, long long* plan) {
-  constexpr int DP = 32 * SWEEP_VPL;
-  constexpr int SLOT_B = DP * (int)sizeof(int16_t);
+  constexpr int DW = 32 * WPL;
+  constexpr int SLOT_B = 32 * SWEEP_VPL * (int)sizeof(int16_t);
   int dev, sms, smem_block;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -780,8 +835,7 @@ cudaError_t sweep_plan(int W, long long* plan) {
   if ((sw + c - 1) / c > SWEEP_WARPS) sw = SWEEP_WARPS * c;
   ns = (W + sw - 1) / sw;
   const int warps = (sw + c - 1) / c;
-  const size_t smem = 2 * SWEEP_WARPS * sizeof(int) +
-                      (size_t)warps * KINDS * 2 * DP * sizeof(int) +
+  const size_t smem = COUNTS_B + (size_t)warps * KINDS * 2 * DW * sizeof(unsigned) +
                       (size_t)warps * NSTAGE * c * SLOT_B;
   if (smem > (size_t)smem_block) return cudaErrorInvalidConfiguration;
   int occ = 0;
@@ -794,7 +848,7 @@ cudaError_t sweep_plan(int W, long long* plan) {
   plan[P_COLS] = c;
   plan[P_SMEM] = (long long)smem;
   plan[P_BLOCKS] = occ;
-  plan[P_EDGE_BYTES] = 2LL * ns * KINDS * RING_ROWS * DP * 8;
+  plan[P_EDGE_BYTES] = 2LL * ns * KINDS * RING_ROWS * DW * sizeof(unsigned long long);
   plan[P_SMS] = sms;
   return cudaSuccess;
 }
@@ -844,13 +898,18 @@ extern "C" int psm_sgm_sweep_plan(int W, int D, long long* plan) {
 // sums uint16. `plan` comes from psm_sgm_sweep_plan with the same W and D;
 // `scratch` holds its edge bytes, zeroed once when allocated; `seq` is
 // above every tag the scratch has held: the slots of row r carry
-// seq + r + 1.
+// seq + r + 1. The caller holds every value of a step in 16 bits
+// (kernels/sgbm_scan.py::halves_hold): P1, P2 >= 0, and a group's sum,
+// cost_bound + 2 P2 and cost_bound + P2 + min(P1, P2) below 2^16 - 1.
 extern "C" int psm_sgm_sweep(const void* cost, void* out_top, int dirs_top, void* out_bottom,
                              int dirs_bottom, int H, int W, int D, int p1, int p2,
                              const long long* plan, void* scratch, unsigned seq, void* stream) {
   if (H <= 0 || W <= 0) return (int)cudaSuccess;
-  if (!out_top || !out_bottom || out_top == out_bottom || D < SWEEP_MIN_D || D > SWEEP_MAX_D)
+  if (!out_top || !out_bottom || out_top == out_bottom || D < SWEEP_MIN_D || D > SWEEP_MAX_D ||
+      p1 < 0 || p2 < 0)
     return (int)cudaErrorInvalidValue;
+  // a P1 above P2 never wins (the source note): the step takes P2 for it
+  if (p1 > p2) p1 = p2;
   const Sweep s0 = {out_top, 0, dirs_top}, s1 = {out_bottom, 1, dirs_bottom};
   constexpr int VEC_B = 16;
   Plan pl;

@@ -17,7 +17,9 @@ pixel and d). Two designs of the kernel, one picked by the shape (`route`):
                  few of its columns, their states in registers from row to
                  row; neighbouring warps pass their edge columns' states
                  through shared memory, neighbouring strips through device
-                 memory (`_SCRATCH`).
+                 memory (`_SCRATCH`). Every state, cost and sum is 16 bits,
+                 two disparities to a 32-bit word, stepped by Hopper's u16x2
+                 instructions; exact where no half carries (`halves_hold`).
   path families  every other shape: a warp walks a path, forward and back,
                  its state in registers and the next pixels in a ring in
                  shared memory; a launch walks a family of each group into
@@ -56,6 +58,10 @@ MAX_D = 2048
 # §6; they tied at 1280 and lost at 1016 and below)
 SWEEPS_MIN_D, SWEEPS_MAX_D = 129, 256
 SWEEPS_MIN_W = 1600
+# The sweeps keep two disparities to a 32-bit word, 16 bits each
+# (csrc/sgbm_scan.cu): exact only where every value of a step lies in
+# [0, HALF) (`halves_hold`).
+HALF = 1 << 16
 # the path families' kernel: shared memory per warp for the ring of pixels
 # ahead (4 stages): 48 pixels in flight at D = 64, 12 at D = 256
 RING_BYTES = 16384
@@ -143,14 +149,41 @@ def takes_sweeps(W: int, D: int) -> bool:
     return SWEEPS_MIN_D <= D <= SWEEPS_MAX_D and W >= SWEEPS_MIN_W
 
 
-def route(cost: torch.Tensor, num_directions: int, cost_bound: int | None, p2: int) -> str:
+def sweep_p1(p1: int, p2: int) -> int:
+    """P1 as the sweeps' step takes it (csrc/sgbm_scan.cu's psm_sgm_sweep):
+    every neighbour's L is at least minL, so a P1 above P2 never wins the
+    step's min, and the step takes P2 for it."""
+    return min(p1, p2)
+
+
+def pads(p1: int, p2: int) -> tuple[int, int]:
+    """What the sweeps' halves at d >= D hold: BIG = HALF - 1 - P1 in the
+    state before a path's first pixel and past the lanes' edges (BIG + P1
+    fits a half), and HALF - 1 - P2 in the costs, so that a step, which adds
+    at most P2 to the cost, keeps such a half in [HALF - 1 - P2, HALF - 1]."""
+    return HALF - 1 - sweep_p1(p1, p2), HALF - 1 - p2
+
+
+def halves_hold(cost_bound: int, p1: int, p2: int) -> bool:
+    """Whether the sweeps' 16-bit halves hold every value of a step over
+    costs in [0, cost_bound]: no penalty negative (L in [0, cost_bound +
+    P2]), every L below BIG (and so L + P1 in a half), and minL + P2 (at
+    most cost_bound + 2 P2) in a half, so the halves past D stay at or above
+    every L. A group's sum is `partial_groups`' rule."""
+    lmax = cost_bound + p2
+    return min(cost_bound, p1, p2) >= 0 and lmax + p2 < HALF and lmax < pads(p1, p2)[0]
+
+
+def route(cost: torch.Tensor, num_directions: int, cost_bound: int | None, p1: int,
+          p2: int) -> str:
     """How `sgbm_aggregate_partials` computes this cost: "sweeps" (the
-    uint16 partials where `takes_sweeps`, the sweeps' groups fit and, for a
-    CUDA cost, its card holds both sweeps' blocks), "paths" (the uint16
-    partials of the path families' groups where those fit), else "int32"
-    (the S alone, by the path families' kernel)."""
+    uint16 partials where `takes_sweeps`, the sweeps' groups fit, their
+    halves hold the step and, for a CUDA cost, its card holds both sweeps'
+    blocks), "paths" (the uint16 partials of the path families' groups where
+    those fit), else "int32" (the S alone, by the path families' kernel)."""
     if (takes_sweeps(*cost.shape[1:])
             and partial_groups(num_directions, cost_bound, p2, cost.dtype) is not None
+            and halves_hold(cost_bound, p1, p2)
             and (cost.device.type != "cuda" or plan(cost) is not None)):
         return "sweeps"
     if partial_groups(num_directions, cost_bound, p2, cost.dtype, "paths") is not None:
@@ -287,7 +320,7 @@ def sgbm_aggregate_partials_plain(cost: torch.Tensor, p1: int, p2: int,
                                   cost_bound: int | None = None) -> tuple[torch.Tensor, ...]:
     """Plain PyTorch version of `sgbm_aggregate_partials`: the same scans,
     each group of the cost's route summed into its own tensor."""
-    r = route(cost, num_directions, cost_bound, p2)
+    r = route(cost, num_directions, cost_bound, p1, p2)
     if r == "int32":
         return (sgbm_aggregate_plain(cost, p1, p2, num_directions),)
     return sum_groups_plain(cost, p1, p2,
@@ -305,7 +338,7 @@ def sgbm_aggregate_partials(cost: torch.Tensor, p1: int, p2: int, num_directions
     _check(cost, num_directions)
     if cost.device.type == "cpu":
         return sgbm_aggregate_partials_plain(cost, p1, p2, num_directions, cost_bound)
-    r = route(cost, num_directions, cost_bound, p2)
+    r = route(cost, num_directions, cost_bound, p1, p2)
     if r == "int32":
         return (sgbm_aggregate(cost, p1, p2, num_directions),)
     parts = tuple(torch.empty(cost.shape, dtype=torch.uint16, device=cost.device)

@@ -420,7 +420,7 @@ def test_sgbm_scan_partials_kernel_matches_plain(dev, nd, D, dtype, p2):
     cost = torch.as_tensor(rng.integers(0, 9451, (H, W, D)), dtype=dtype, device=dev)
     narrow = K.partial_groups(nd, 9450, p2, dtype) is not None
     assert narrow == (dtype == torch.int16 and p2 == 2400)
-    route = sgbm_scan.route(cost, nd, 9450, p2)
+    route = sgbm_scan.route(cost, nd, 9450, 600, p2)
     assert route == ("paths" if narrow else "int32")
     K.reset_launches()
     parts = K.sgbm_aggregate_partials(cost, 600, p2, nd, 9450)
@@ -474,9 +474,9 @@ def test_sgbm_partials_take_the_path_families_where_a_sweep_group_does_not_fit(d
     bound, p2 = 9450, (2**16 - 1) // 3 - 9450
     rng = np.random.default_rng(4)
     cost = torch.as_tensor(rng.choice([0, bound], (4, 1700, 160)), dtype=torch.int16, device=dev)
-    assert sgbm_scan.route(cost, 5, bound, 2400) == "sweeps"
+    assert sgbm_scan.route(cost, 5, bound, 600, 2400) == "sweeps"
     assert K.partial_groups(5, bound, p2) is None
-    assert sgbm_scan.route(cost, 5, bound, p2) == "paths"
+    assert sgbm_scan.route(cost, 5, bound, 600, p2) == "paths"
     K.reset_launches()
     parts = K.sgbm_aggregate_partials(cost, 600, p2, 5, bound)
     assert (K.LAUNCHES["sgbm_scan"], K.SWEEPS["sgbm_scan"]) == (2, 0)
@@ -494,55 +494,75 @@ def _partials_launches(nd, route):
 
 # (H, W): strips of one column (W below the card's strips), a 2K row
 # (34-column strips, the last one 32 wide), W = 301 (the last strip one
-# column), a single row, a single column
+# column), a single row, a single column (W = 1600 and 2376:
+# test_sgbm_sweeps_strips_from_the_plan)
 SWEEP_SHAPES = [(29, 47), (12, 2208), (23, 301), (1, 7), (9, 1)]
 
 
+def _sweep_penalties(pen, nd):
+    """(costs, P1, P2) of a case: "random" costs up to 9450 with SGBMConfig's
+    P1 600 and P2 2400; at the edge of the sweeps' 16-bit halves, costs of 0
+    and 9450 (every L reaches 9450 + P2 somewhere) with P2 the largest the
+    sweeps' largest group admits and P1 600 ("p2_max") or P2 ("p1_eq_p2");
+    "p1_gt_p2", P1 2400 above P2 600 on random costs."""
+    p2_max = (2**16 - 1) // {8: 4, 5: 4, 3: 2}[nd] - 9450
+    return {"random": ("random", 600, 2400), "p2_max": ("edge", 600, p2_max),
+            "p1_eq_p2": ("edge", p2_max, p2_max), "p1_gt_p2": ("random", 2400, 600)}[pen]
+
+
 @pytest.mark.parametrize("nd", [3, 5, 8])
-@pytest.mark.parametrize("D", [7, 16, 64, 100, 130, 256])
+@pytest.mark.parametrize("D,pen", [(D, "random") for D in (7, 16, 64, 100, 129, 130, 131, 255,
+                                                            256)]
+                         + [(D, pen) for D in (129, 131, 255, 256)
+                            for pen in ("p2_max", "p1_eq_p2", "p1_gt_p2")])
 @pytest.mark.parametrize("H,W", SWEEP_SHAPES)
-def test_sgbm_sweeps_match_the_plain_groups(dev, nd, D, H, W):
+def test_sgbm_sweeps_match_the_plain_groups(dev, nd, D, pen, H, W):
     """Each design's uint16 partials are bitwise their plain groups and
     their sum the plain S: the path families' at every D, the sweeps' (both
     in one launch) at the D they take, at every shape; the entry takes the
     route its rule gives, and the int32 cost's S (the path families) equals
-    the plain S. D = 130 leaves lanes past D."""
+    the plain S. D = 129, 130, 131 and 255 leave lanes and halves past D;
+    the edge cases hold the sweeps' 16-bit halves at their largest values,
+    with P1 = P2 and P1 > P2."""
     from primestereomatch_torch.kernels import sgbm_scan
 
+    kind, p1, p2 = _sweep_penalties(pen, nd)
     rng = np.random.default_rng(H * W + D + nd)
-    C = rng.integers(0, 9451, (H, W, D))
+    C = rng.integers(0, 9451, (H, W, D)) if kind == "random" else rng.choice([0, 9450], (H, W, D))
     cost = torch.as_tensor(C, dtype=torch.int16, device=dev)
-    want = K.sgbm_aggregate_plain(cost, 600, 2400, nd)
+    want = K.sgbm_aggregate_plain(cost, p1, p2, nd)
     designs = {"paths": sgbm_scan._paths}
     if sgbm_scan.SWEEPS_MIN_D <= D <= sgbm_scan.SWEEPS_MAX_D:
         designs["sweeps"] = sgbm_scan._sweeps
     for route, fn in designs.items():
         parts = tuple(torch.empty(cost.shape, dtype=torch.uint16, device=dev) for _ in range(2))
         K.reset_launches()
-        fn(cost, 600, 2400, nd, parts)
+        fn(cost, p1, p2, nd, parts)
         assert (K.LAUNCHES["sgbm_scan"], K.SWEEPS["sgbm_scan"]) == _partials_launches(nd, route)
         plain = sgbm_scan.sum_groups_plain(
-            cost, 600, 2400, K.partial_groups(nd, 9450, 2400, torch.int16, route))
+            cost, p1, p2, K.partial_groups(nd, 9450, p2, torch.int16, route))
         assert all(torch.equal(a, b) for a, b in zip(parts, plain)), route
         assert torch.equal(sum(q.int() for q in parts), want), route
     route = "sweeps" if sgbm_scan.takes_sweeps(W, D) else "paths"
-    assert sgbm_scan.route(cost, nd, 9450, 2400) == route
-    parts = K.sgbm_aggregate_partials(cost, 600, 2400, nd, 9450)
+    assert sgbm_scan.route(cost, nd, 9450, p1, p2) == route
+    parts = K.sgbm_aggregate_partials(cost, p1, p2, nd, 9450)
     assert torch.equal(sum(q.int() for q in parts), want)
     wide = torch.as_tensor(C, dtype=torch.int32, device=dev)
-    assert torch.equal(K.sgbm_aggregate(wide, 600, 2400, nd), want)
+    assert torch.equal(K.sgbm_aggregate(wide, p1, p2, nd), want)
 
 
+@pytest.mark.parametrize("nd", [8, 5, 3])
 @pytest.mark.parametrize("H,W,D", [(17, 37, 130), (6, 20, 256), (11, 5, 200), (9, 300, 160),
-                                   (7, 2208, 256), (5, 2376, 136)])
-def test_sgbm_sweeps_strips_from_the_plan(dev, H, W, D):
+                                   (7, 2208, 256), (5, 2376, 136), (4, 1600, 129),
+                                   (4, 2208, 131), (3, 2376, 255)])
+def test_sgbm_sweeps_strips_from_the_plan(dev, nd, H, W, D):
     """The plan's strips cover the width, the last one narrower where they
     do not divide it, a block's warps cover its strip, the last warp with
     fewer columns where they do not divide it, and the card holds both
     sweeps' blocks: strips of one column (W below the card's strips), of 5
-    columns in warps of 2, of 34 in 12 warps of 3 (2K) and of 36 in 12
-    warps of 3 (W = 2376, the widest an H100 holds); the sweeps' partials
-    equal their plain groups."""
+    columns in warps of 2, of 34 in 12 warps of 3 (2K), of 36 in 12 warps of
+    3 (W = 2376, the widest an H100 holds) and of 25 (W = 1600); the sweeps'
+    partials equal their plain groups in every mode, odd D included."""
     from primestereomatch_torch.kernels import sgbm_scan
 
     rng = np.random.default_rng(H + W + D)
@@ -553,8 +573,8 @@ def test_sgbm_sweeps_strips_from_the_plan(dev, H, W, D):
     assert (pl.warps - 1) * pl.cols < pl.strip_width <= pl.warps * pl.cols <= 12 * pl.cols
     assert 2 * pl.strips <= pl.sms * pl.blocks_per_sm
     parts = tuple(torch.empty(cost.shape, dtype=torch.uint16, device=dev) for _ in range(2))
-    sgbm_scan._sweeps(cost, 600, 2400, 8, parts)
-    plain = sgbm_scan.sum_groups_plain(cost, 600, 2400, sgbm_scan._GROUPS[8])
+    sgbm_scan._sweeps(cost, 600, 2400, nd, parts)
+    plain = sgbm_scan.sum_groups_plain(cost, 600, 2400, sgbm_scan._GROUPS[nd])
     assert all(torch.equal(a, b) for a, b in zip(parts, plain))
 
 
@@ -573,7 +593,7 @@ def test_sgbm_partials_take_the_path_families_where_the_sweeps_do_not_fit(dev, H
     cost = torch.as_tensor(rng.integers(0, 9451, (H, W, D)), dtype=torch.int16, device=dev)
     if D <= sgbm_scan.SWEEPS_MAX_D:
         assert sgbm_scan.takes_sweeps(W, D) and sgbm_scan.plan(cost) is None
-    assert sgbm_scan.route(cost, 8, 9450, 2400) == "paths"
+    assert sgbm_scan.route(cost, 8, 9450, 600, 2400) == "paths"
     K.reset_launches()
     parts = K.sgbm_aggregate_partials(cost, 600, 2400, 8, 9450)
     assert (K.LAUNCHES["sgbm_scan"], K.SWEEPS["sgbm_scan"]) == (2, 0)

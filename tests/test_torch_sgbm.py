@@ -175,6 +175,58 @@ def test_partial_groups_follow_the_bound(nd, route):
     assert K.partial_groups(nd, 9450, 2400, torch.int32, route) is None
 
 
+@pytest.mark.parametrize("nd", [3, 5, 8])
+def test_sweeps_take_only_what_their_16_bit_halves_hold(nd):
+    """The sweeps step two disparities to a 32-bit word, 16 bits each: over a
+    grid of cost bounds and penalties (negative ones, P1 = P2, P1 > P2, and
+    the largest P2 the groups admit), the route sends a cost to the sweeps
+    only where no half can carry: no penalty negative, every L (at most
+    cost_bound + P2) and BIG + P1 below 2**16 with the P1 the step takes,
+    BIG above every L, minL + P2 in a half, the costs past D (a step adds
+    0 to P2 to them) at or above every L and below 2**16 after a step, and
+    every group's sum below 2**16; elsewhere to the path families or the
+    int32 S. A P1 above P2, which the step takes as P2, leaves every plain
+    group as it was."""
+    from primestereomatch_torch.kernels import sgbm_scan
+
+    half = sgbm_scan.HALF
+    assert half == 2**16
+    g = {8: 4, 5: 4, 3: 2}[nd]
+    cost = torch.empty((1, 1600, 256), dtype=torch.int16)
+    assert sgbm_scan.takes_sweeps(1600, 256)
+    taken = set()
+    for bound in (0, 100, 9450, 16000, 2**15 - 1):
+        edge = (half - 1) // g - bound
+        for p2 in (-1, 0, 96, 2400, edge, edge + 1, 40000):
+            for p1 in (-1, 0, 8, p2 - 1, p2, p2 + 1, 5000, 40000, 2**16):
+                r = sgbm_scan.route(cost, nd, bound, p1, p2)
+                groups = K.partial_groups(nd, bound, p2, torch.int16)
+                if r != "sweeps":
+                    assert r in ("paths", "int32")
+                    assert groups is None or not sgbm_scan.halves_hold(bound, p1, p2)
+                    continue
+                q1 = sgbm_scan.sweep_p1(p1, p2)
+                big, pad_cost = sgbm_scan.pads(p1, p2)
+                lmax = bound + p2
+                assert q1 == min(p1, p2) and min(p1, p2, bound) >= 0
+                assert lmax + q1 < half and big + q1 < half and lmax < big
+                assert lmax + p2 < half and lmax <= pad_cost and pad_cost + p2 < half
+                assert all(len(grp) * lmax < half for grp in groups)
+                taken.add(("p1>p2" if p1 > p2 else "p1=p2" if p1 == p2 else "p1<p2",
+                           p2 == edge))
+    assert {("p1>p2", True), ("p1=p2", True), ("p1<p2", True), ("p1>p2", False)} <= taken
+    assert sgbm_scan.route(cost, nd, 9450, 600, 2400) == "sweeps"
+    assert sgbm_scan.route(cost, nd, 9450, -1, 2400) == "paths"
+    rng = np.random.default_rng(nd)
+    small = _t(rng.integers(0, 9451, (6, 9, 20))).to(torch.int16)
+    groups = sgbm_scan._GROUPS[nd]
+    for p1, p2 in ((5000, 2400), (2400, 600), (40000, 0)):
+        q1 = sgbm_scan.sweep_p1(p1, p2)
+        assert all(torch.equal(a, b) for a, b in zip(
+            sgbm_scan.sum_groups_plain(small, p1, p2, groups),
+            sgbm_scan.sum_groups_plain(small, q1, p2, groups)))
+
+
 @pytest.mark.parametrize("route,cost_itemsize,want", [
     ("sweeps", 2, {3: 8, 5: 8, 8: 8}), ("paths", 2, {3: 14, 5: 26, 8: 44}),
     ("int32", 2, {3: 26, 5: 46, 8: 76}), ("int32", 4, {3: 32, 5: 56, 8: 92})])
@@ -203,7 +255,7 @@ def test_partials_route_by_disparities(W, D):
     H, bound = 2, 9450
     C = rng.integers(0, bound + 1, (H, W, D)).astype(np.int32)
     cost = _t(C).to(torch.int16)
-    route = sgbm_scan.route(cost, 8, bound, 2400)
+    route = sgbm_scan.route(cost, 8, bound, 600, 2400)
     assert route == ("sweeps" if 128 < D <= 256 and W >= 1600 else "paths")
     assert sgbm_scan.takes_sweeps(W, D) == (route == "sweeps")
     groups = K.partial_groups(8, bound, 2400, torch.int16, route)
