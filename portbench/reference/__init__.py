@@ -7,12 +7,15 @@ in one block, keyed by `block_key(algorithm)`: STEREO_GIF's in "gif",
 STEREO_SGBM's in "sgbm", each key a field of the app's `<key>_cfg`. Its
 reference is `portbench/reference/<key>.py`, which has
 
-    disparities(left_u8, right_u8, block, dtype) -> (2, h, w) uint8 tensor
+    disparities(left_u8, right_u8, block, dtype) -> (2, h, w) tensor
 
 taking the two (h, w, 3) uint8 views the app matches, on a device, and the
 configuration's block, and giving both views' disparities as the app hands
 them back: the right view all zeros where the app's algorithm is left-only
-(STEREO_SGBM). `dtype` is the precision of its floating-point stages.
+(STEREO_SGBM). The disparities lie in [0, D - 1] for the block's D
+disparities and come in `disparity_dtype(D)`, the smallest unsigned type
+that holds them: uint8 up to D = 256, uint16 above (SGBM goes to 2048).
+`dtype` is the precision of its floating-point stages.
 
 `outputs` works out again, from the camera's raw uint8 frames and the
 configuration alone, what the app hands back: the rectified crops where the
@@ -29,6 +32,13 @@ import torch
 from portbench.reference import calib
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
+
+
+def disparity_dtype(num_disparities: int) -> torch.dtype:
+    """The smallest unsigned type that holds the disparities [0, D - 1]."""
+    if not 1 <= num_disparities <= 1 << 16:
+        raise ValueError(f"no unsigned disparity type for D = {num_disparities}")
+    return torch.uint8 if num_disparities <= 1 << 8 else torch.uint16
 
 
 def block_key(algorithm: str) -> str:
@@ -51,7 +61,7 @@ def algorithm(cfg: dict, root: pathlib.Path = ROOT):
 def outputs(cfg: dict, left_u8: np.ndarray, right_u8: np.ndarray, dev, rect: dict | None = None,
             dtype=torch.float32, root: pathlib.Path = ROOT) -> dict:
     """The camera's (H, W, 3) uint8 eyes -> {"crops": (2, h, w, 3) uint8 or
-    None, "disp": (2, h, w) uint8}, as NumPy arrays. `rect` is
+    None, "disp": (2, h, w) in `disparity_dtype(D)`}, as NumPy arrays. `rect` is
     `calib.rectification(...)` where the configuration rectifies; the
     algorithm's module is loaded from checkout `root`."""
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -23,6 +23,7 @@ GRAY_W = (0.299, 0.587, 0.114)
 U8_TO_F32 = float(np.float32(1 / 255.0))   # convertTo(CV_32F, 1/255.0f)
 COST_D_CHUNK = 32                            # disparities gathered at once
 WTA_D_CHUNK = 16                             # disparities upsampled at once above D = 64
+MAX_DIS = 256                                # disparities in 8 bits, as the port's kernels hold them
 
 
 def reflect101(n: int, lo: int, hi: int) -> np.ndarray:
@@ -221,8 +222,11 @@ def disparities(left_u8: torch.Tensor, right_u8: torch.Tensor, gif: dict,
     """One (H, W, 3) uint8 BGR pair on a device -> (2, H, W) uint8, the left
     view's disparities and the right's. `gif` holds the configuration's
     parameters: max_dis, alpha, border_cost, gif_radius, gif_eps, subsample,
-    med_sz, wmf_sigma."""
+    med_sz, wmf_sigma. STEREO_GIF holds its disparities in 8 bits, as the
+    port's GIF kernels do: max_dis past 256 raises."""
     D, s = gif["max_dis"], gif["subsample"]
+    if D > MAX_DIS:
+        raise ValueError(f"STEREO_GIF holds at most {MAX_DIS} disparities, not {D}")
     k = 2 * (gif["gif_radius"] // s) + 1
     u8 = torch.stack([left_u8, right_u8])
     views = (u8.to(torch.float32) * U8_TO_F32).to(dtype)

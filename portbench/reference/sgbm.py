@@ -34,12 +34,16 @@ differences of running sums. Each gives the oracle's integers
 `disparity16` gives the (h, w) int16 disparities x 16, invalid (min_disparity
 - 1) * 16; `disparities` the app's canonical display of them, max(d16, 0) //
 16 clipped to [0, num_disparities - 1], beside an all-zero right view: the
-reference's SGBM is left-only.
+reference's SGBM is left-only. The display comes in the smallest unsigned
+type that holds it (`reference.disparity_dtype`): uint8 up to 256
+disparities, uint16 past them, where a uint8 would wrap 256 and up.
 """
 
 from __future__ import annotations
 
 import torch
+
+from portbench.reference import disparity_dtype
 
 DISP_SCALE = 16          # OpenCV's fixed-point factor of the disparities
 BIG = 1 << 30            # beyond any aggregated cost; never wins a minimum
@@ -259,10 +263,11 @@ def disparity16(left_u8: torch.Tensor, right_u8: torch.Tensor, block: dict) -> t
 
 def disparities(left_u8: torch.Tensor, right_u8: torch.Tensor, block: dict,
                 dtype=torch.float32) -> torch.Tensor:
-    """Both views as the app hands them back: (2, h, w) uint8, the left view's
-    canonical display and an all-zero right view. Every stage is integer, so
-    `dtype` changes nothing."""
+    """Both views as the app hands them back: (2, h, w) in
+    `disparity_dtype(num_disparities)`, the left view's canonical display and
+    an all-zero right view. Every stage is integer, so `dtype` changes
+    nothing."""
+    D = block["num_disparities"]
     d16 = disparity16(left_u8, right_u8, block).to(torch.int32)
-    left = (d16.clamp(min=0) // DISP_SCALE).clamp(0, block["num_disparities"] - 1)
-    left = left.to(torch.uint8)
-    return torch.stack([left, torch.zeros_like(left)])
+    left = (d16.clamp(min=0) // DISP_SCALE).clamp(0, D - 1)
+    return torch.stack([left, torch.zeros_like(left)]).to(disparity_dtype(D))

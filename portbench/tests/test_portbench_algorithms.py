@@ -1,7 +1,8 @@
 """A configuration's `algorithm` decides what the harness builds, judges and
-traces: a STEREO_SGBM configuration, its cell, its reference module and a
-metric reader, added as files to a copy of the benchmark, run through the
-same harness on the CPU (small frames), judged by the module its name gives."""
+traces: a STEREO_SGBM configuration, its cell and a metric reader, added as
+files to a copy of the benchmark, run through the same harness on the CPU
+(small frames), judged by the reference module its name gives (the copy's
+own `reference/sgbm.py`, or one a test writes in its place)."""
 
 from __future__ import annotations
 
@@ -15,19 +16,6 @@ from portbench import run
 from portbench.tests.tiny import ROOT, tiny_root
 
 CELL = "tiny_sgbm_vga.max"
-# a stand-in for a plain SGBM reference: the port's own SGBM on the CPU, which runs
-# the plain versions of its kernels
-PLAIN = '''
-import torch
-from primestereomatch_torch.config import SGBMConfig
-from primestereomatch_torch.models import sgbm_display_u8, stereo_sgbm_forward
-
-
-def disparities(left_u8, right_u8, block, dtype=torch.float32):
-    d16 = stereo_sgbm_forward(left_u8, right_u8, SGBMConfig(**block), device=left_u8.device)
-    left = sgbm_display_u8(d16, 1, block["num_disparities"])
-    return torch.stack([left, torch.zeros_like(left)])
-'''
 ZEROS = '''
 import torch
 
@@ -50,9 +38,10 @@ def sgbm_block(**over) -> dict:
     return {**dataclasses.asdict(SGBMConfig(num_disparities=16)), **over}
 
 
-def add_config(root, algorithm="STEREO_SGBM", key="sgbm", block=None, reference=PLAIN):
+def add_config(root, algorithm="STEREO_SGBM", key="sgbm", block=None, reference=None):
     """Files only: a configuration of `algorithm` on the calibrated tiny
-    frames, its closed-loop cell, its reference module (None: none) and a
+    frames, its closed-loop cell, a reference module written over the copy's
+    `reference/<key>.py` (None: the copy's own, where it has one) and a
     metric reader; BENCHMARK.json gains the cell and the metric."""
     base = json.loads((root / "portbench" / "configs" / "tiny_vga.json").read_text())
     cfg = {k: v for k, v in base.items() if k != "gif"}
@@ -85,14 +74,19 @@ def one_run(root, trace, logged=None):
 
 @pytest.fixture(scope="module")
 def sgbm_root(tmp_path_factory):
-    return add_config(tiny_root(tmp_path_factory.mktemp("sgbm")))
+    return add_config(tiny_root(tmp_path_factory.mktemp("sgbm")), reference=None)
+
+
+def untouched(root):
+    """Every file of the benchmark's `portbench/` is in `root`, byte for byte."""
+    for path in (ROOT / "portbench").rglob("*"):
+        if path.is_file() and "__pycache__" not in path.parts:
+            copy = root / path.relative_to(ROOT)
+            assert copy.read_bytes() == path.read_bytes(), path
 
 
 def test_the_configuration_is_added_without_editing_a_file(sgbm_root):
-    for path in (ROOT / "portbench").rglob("*"):
-        if path.is_file() and "__pycache__" not in path.parts:
-            copy = sgbm_root / path.relative_to(ROOT)
-            assert copy.read_bytes() == path.read_bytes(), path
+    untouched(sgbm_root)
 
 
 @pytest.mark.parametrize("trace", [False, True], ids=["untraced", "traced"])
